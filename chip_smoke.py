@@ -8,21 +8,35 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases; any failure raises, so the script exits non-zero and prints no
 result line:
 
-1. build    -- compiles the four kernels of ``dietgpu_tpu_torch/csrc/``
-               with nvcc for sm_90a, all in parallel, into ``build/``;
-2. kernels  -- each kernel against its plain torch version on the card,
-               bit-exact (tolerance 0: the codec is lossless and the
-               archive format fixed), at small and ragged shapes;
-3. main path -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
+1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
+               nvcc for sm_90a, all in parallel, into ``build/``;
+2. kernels  -- each of the eight kernels against its plain torch version on
+               the card, bit-exact (tolerance 0: the codec is lossless and
+               the archive format fixed), at small and ragged shapes, with
+               a lying header and a corrupted payload for each decode;
+3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
                counters must move, the roundtrip must be exact, the
                archive must equal the plain pipeline's on the card byte for
-               byte, and the ratio must be 0.6742. Then every kernel is
-               held against its plain version again at these shapes;
-4. timing   -- CUDA events: compress and decompress GB/s, each kernel's
-               ms beside its bound and its plain version's ms, and a
-               measured copy_ of the same bytes.
+               byte, and the ratio must be 0.6742. Then every kernel of the
+               path is held against its plain version again at these
+               shapes;
+   path B   -- f32, 128Mi words (512 MiB), prob_bits 10, no checksum,
+               standard-normal inputs as benchmarks/sweep.py makes them,
+               through the same entry points, with the same checks, and one
+               call with the checksum verified on decode;
+   path C   -- raw ANS, 2^28 bytes (256 MiB), prob_bits 10, exponential
+               bytes as benchmarks/sweep.py makes them, through
+               ans_encode_padded (its own histogram) / ans_decode_padded,
+               with the same checks and one checksummed call;
+4. timing   -- CUDA events: compress and decompress GB/s of each path, each
+               kernel's ms beside its bound and its plain version's ms
+               (and, for the histogram, torch.bincount's), and a measured
+               copy_ of path A's bytes.
+
+Each path is driven with the launch counters set to 0 just before it and
+read just after; a kernel's `launches` is the count from its own path.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
@@ -36,29 +50,53 @@ import sys
 import time
 from pathlib import Path
 
-MWORDS = 128  # main-path size, Mi words (bench.py's size)
+MWORDS = 128  # paths A and B, Mi words (bench.py's size)
+RAW_BYTES = 1 << 28  # path C, the bytes of path A's input
 ITERS = 20  # timed iterations per measurement
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # 32-bit non-tensor peak (fp32 rate; int32 is not faster)
 
-# kernel -> (source, the TPU kernel it replaces, 32-bit ops per symbol/word)
+# kernel -> (source, the TPU kernel it replaces, 32-bit ops per symbol/word,
+# the path whose launches it reports)
 KERNELS = {
     "split": (
         "dietgpu_tpu_torch/csrc/split.cu",
-        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12,
+        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "A",
     ),
     "encode": (
         "dietgpu_tpu_torch/csrc/encode.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:216", 16,
+        "dietgpu_tpu/ans/pallas_encode.py:216", 16, "A",
     ),
     "assembly": (
         "dietgpu_tpu_torch/csrc/assembly.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:682", 0,
+        "dietgpu_tpu/ans/pallas_encode.py:682", 0, "A",
     ),
     "decode": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:121", 16,
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "A",
     ),
+    "hist": (
+        "dietgpu_tpu_torch/csrc/hist.cu",
+        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "C",
+    ),
+    "decode_raw": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "C",
+    ),
+    "split_f32": (
+        "dietgpu_tpu_torch/csrc/split_f32.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "B",
+    ),
+    "decode_f32": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "B",
+    ),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "A": ("split", "encode", "assembly", "decode"),
+    "B": ("split_f32", "encode", "assembly", "decode_f32"),
+    "C": ("hist", "encode", "assembly", "decode_raw"),
 }
 
 
@@ -95,6 +133,11 @@ def require_exact(what, pairs):
     return err
 
 
+def require(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
 def time_ms(fn, iters, warmup=2):
     import torch
 
@@ -118,6 +161,125 @@ def staged_pairs(a, b, counts):
     return [(torch.where(keep, a, 0), torch.where(keep, b, 0))]
 
 
+def drive(port, name, fn):
+    """Run fn with the launch counters at 0; fail if a kernel of the path
+    was not launched. Returns (fn's result, the counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    port.reset_kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = port.kernel_launches()
+    log(f"  launches on path {name}: {launches}")
+    for k in PATH_KERNELS[name]:
+        require(launches[k] >= 1, f"kernel {k} was not launched on path {name}")
+    return out, launches
+
+
+def phase2_new_kernels(port, dev):
+    """The kernels of the f32 and raw-ANS paths against their plain versions
+    at small and ragged shapes."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, cuda_hist
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    F32 = C.FLOAT_TYPE_FLOAT32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    Lw = 1 << 20
+    words = torch.randint(-(1 << 31), 1 << 31, (Lw,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    for n in (Lw, Lw - 12345):
+        for ck in (False, True):
+            require_exact(
+                f"split_f32 n={n} ck={ck}",
+                zip(cuda_float.split_words_f32_cuda(words, n, ck),
+                    cuda_float.split_words_f32_plain(words, n, ck)),
+            )
+    for n in (4 * Lw, 4 * Lw - 1, 4 * Lw - 12345, 4097, 3, 0):  # ends inside a word
+        require_exact(
+            f"hist length={n} ck=True",
+            zip(cuda_hist.histogram_u8_cuda(words, n, True),
+                cuda_hist.histogram_u8_plain(words, n, True)),
+        )
+
+    x = torch.randn(Lw, generator=gen, device=dev).view(torch.int32)
+    n = Lw - 777
+    for pb in C.SUPPORTED_PROB_BITS:
+        for ck in (False, True):
+            ka, ks = codec.float_compress_padded(x, n, F32, pb, ck)
+            pa, ps = codec.float_compress_padded_plain(x, n, F32, pb, ck)
+            size = int(ks)
+            require_exact(f"f32 archive pb={pb} ck={ck}",
+                          [(ks, ps), (ka[: size // 4], pa[: size // 4])])
+            for digest in (False, True):
+                require_exact(
+                    f"decode_f32 pb={pb} ck={ck} digest={digest}",
+                    zip(cuda_decode.decode_float_cuda(ka, F32, Lw, pb, n, digest),
+                        cuda_decode.decode_float_plain(ka, F32, Lw, pb, n, digest)),
+                )
+            r = codec.float_decompress_padded(ka, F32, Lw, pb, ck, static_length=n)
+            require(bool(r["success"]) and bool(r["checksum_ok"]), "f32 small roundtrip status")
+            require(torch.equal(r["out32"][:n], x[:n]), "f32 small roundtrip differs")
+    # a lying header and a corrupted payload (ka: the last, checksummed archive)
+    bad = ka.clone()
+    bad[1] += 4096
+    for fn in (cuda_decode.decode_float_cuda, cuda_decode.decode_float_plain):
+        require(not bool(fn(bad, F32, Lw, pb)[1]), "a lying f32 header decoded with success")
+    bad = ka.clone()
+    bad[4 + 100] ^= 0x01000000  # a byte of the low plane
+    r = codec.float_decompress_padded(bad, F32, Lw, pb, True)
+    require(bool(r["success"]) and not bool(r["checksum_ok"]),
+            "a corrupted f32 plane byte passed the checksum")
+    log("  f32: lying header fails success; corrupted payload fails checksum_ok")
+
+    L = 1 << 20
+    n = L - 4097
+    rng = np.random.default_rng(2)
+    data = torch.from_numpy(np.minimum(rng.exponential(30, L), 255).astype(np.uint8)).to(dev)
+    for pb in C.SUPPORTED_PROB_BITS:
+        for ck in (False, True):
+            ka, ks = port.ans_encode_padded(data, n, pb, ck)
+            pa, ps = cuda_encode.ans_encode_padded_plain(data, n, pb, ck)
+            size = int(ks)
+            require_exact(f"raw archive pb={pb} ck={ck}",
+                          [(ks, ps), (ka[: size // 4], pa[: size // 4])])
+            for digest in (False, True):
+                require_exact(
+                    f"decode_raw pb={pb} ck={ck} digest={digest}",
+                    zip(cuda_decode.decode_raw_cuda(ka, pb, L, digest),
+                        cuda_decode.decode_raw_plain(ka, pb, L, digest)),
+                )
+            r = port.ans_decode_padded(ka, pb, L, ck)
+            require(bool(r["success"]) and bool(r["checksum_ok"]), "raw small roundtrip status")
+            require(torch.equal(r["out"][:n], data[:n]) and not r["out"][n:].any(),
+                    "raw small roundtrip differs")
+    # lying headers: a size past the capacity fails success; a block count
+    # past the buffer leaves success as the format defines it (magic,
+    # prob_bits, size) and decodes garbage without a fault -- garbage that
+    # may differ between the kernel and the plain version, whose clamps
+    # differ past the archive's real sections
+    bad = ka.clone()
+    bad[2] = L + 1
+    for fn in (cuda_decode.decode_raw_cuda, cuda_decode.decode_raw_plain):
+        require(not bool(fn(bad, pb, L)[1]), "a lying raw header decoded with success")
+    bad = ka.clone()
+    bad[1] = 0xFFFF
+    got = cuda_decode.decode_raw_cuda(bad, pb, L, True)
+    torch.cuda.synchronize()
+    require(bool(got[1]) == bool(cuda_decode.decode_raw_plain(bad, pb, L)[1]),
+            "a lying raw block count changed success")
+    bad = ka.clone()
+    bad[136 + 5] ^= 0x10  # a lane's final state: decodes, to other bytes
+    r = port.ans_decode_padded(bad, pb, L, True)
+    require(bool(r["success"]) and not bool(r["checksum_ok"]),
+            "a corrupted raw payload passed the checksum")
+    log("  raw: lying header fails success; corrupted payload fails checksum_ok")
+
+
 def main():
     import numpy as np
     import torch
@@ -129,10 +291,11 @@ def main():
     import dietgpu_tpu_torch as port
     from dietgpu_tpu_torch import _build
     from dietgpu_tpu_torch import constants as C
-    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, layout, stats
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, cuda_hist, layout, stats
     from dietgpu_tpu_torch.ans import encode as plain_encode
     from dietgpu_tpu_torch.floatcodec import codec, cuda_float
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -204,8 +367,12 @@ def main():
     require_exact("encode overflow block",
                   [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1].clamp(max=2560)))
 
-    # ---- 3. the main path ----
-    log(f"# phase 3: main path, bf16 {MWORDS}Mi words, prob_bits 10, no checksum")
+    phase2_new_kernels(port, dev)
+    del x, words, w, ka, pa, bad, rare, data
+    torch.cuda.empty_cache()
+
+    # ---- 3. path A ----
+    log(f"# phase 3: path A, bf16 {MWORDS}Mi words, prob_bits 10, no checksum")
     n = MWORDS * 1024 * 1024
     Lw = C.round_up(n, C.DEFAULT_BLOCK_SIZE)
     ft = C.FLOAT_TYPE_BFLOAT16
@@ -218,17 +385,12 @@ def main():
         w[n:] = 0
         inputs.append(torch.from_numpy(w.view(np.int32)).to(dev))
     del xs, w
-    torch.cuda.synchronize()
 
-    _build.reset_kernel_launches()
-    arc, size = port.float_compress_padded(inputs[0], n, ft, 10, False)
-    res = port.float_decompress_padded(arc, ft, Lw, 10, False, static_length=n)
-    torch.cuda.synchronize()
-    launches = port.kernel_launches()
-    log(f"  launches on the main path: {launches}")
-    for k in KERNELS:
-        if launches[k] < 1:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+    def path_a():
+        a, s = port.float_compress_padded(inputs[0], n, ft, 10, False)
+        return a, s, port.float_decompress_padded(a, ft, Lw, 10, False, static_length=n)
+
+    (arc, size, res), launches_a = drive(port, "A", path_a)
     if not bool(res["success"]) or int(res["size"]) != n:
         raise AssertionError("main-path decode failed its status")
     if not torch.equal(res["out32"][: n // 2], inputs[0][: n // 2]):
@@ -283,6 +445,113 @@ def main():
     err["decode"] = e4
     if err_archive:
         raise AssertionError("archive mismatch")
+    torch.cuda.empty_cache()
+
+    # ---- 3. path B: f32 ----
+    log(f"# phase 3: path B, f32 {MWORDS}Mi words, prob_bits 10, no checksum")
+    F32 = C.FLOAT_TYPE_FLOAT32
+    raw_b = 4 * n
+    rng = np.random.default_rng(0)
+    inputs_b = []
+    for _ in range(3):  # as benchmarks/sweep.py:79,89
+        xs = rng.standard_normal(Lw).astype(np.float32)
+        inputs_b.append(torch.from_numpy(xs.view(np.int32)).to(dev))
+    del xs
+
+    def path_b():
+        a, s = port.float_compress_padded(inputs_b[0], n, F32, 10, False)
+        return a, s, port.float_decompress_padded(a, F32, Lw, 10, False, static_length=n)
+
+    (arc_b, size_b, res), launches_b = drive(port, "B", path_b)
+    require(bool(res["success"]) and int(res["size"]) == n, "path B decode failed its status")
+    require(torch.equal(res["out32"], inputs_b[0]), "path B roundtrip differs")
+    size_b = int(size_b)
+    parc, psize = codec.float_compress_padded_plain(inputs_b[0], n, F32, 10, False)
+    require_exact("path B archive vs plain pipeline",
+                                [(torch.tensor(size_b), psize.cpu()),
+                                 (arc_b[: size_b // 4], parc[: size_b // 4])])
+    del parc
+    sizes = [size_b]
+    for w in inputs_b[1:]:
+        a2, s2 = port.float_compress_padded(w, n, F32, 10, False)
+        r2 = port.float_decompress_padded(a2, F32, Lw, 10, False, static_length=n)
+        require(bool(r2["success"]) and torch.equal(r2["out32"], w), "path B roundtrip differs")
+        sizes.append(int(s2))
+    log(f"  roundtrip exact on 3 inputs; ratios {[round(s / raw_b, 6) for s in sizes]}")
+    a2, s2 = port.float_compress_padded(inputs_b[1], n, F32, 10, True)
+    r2 = port.float_decompress_padded(a2, F32, Lw, 10, True, static_length=n)
+    require(bool(r2["success"]) and bool(r2["checksum_ok"])
+            and torch.equal(r2["out32"], inputs_b[1]), "path B checksummed call failed")
+    log("  checksummed call: roundtrip exact, checksum verified on decode")
+    del a2, r2
+    kf = cuda_float.split_words_f32_cuda(inputs_b[0], n)
+    err["split_f32"] = require_exact(
+        "split_f32, main shape", zip(kf, cuda_float.split_words_f32_plain(inputs_b[0], n)))
+    del kf
+    e8 = 0
+    for digest in (False, True):
+        e8 = max(e8, require_exact(
+            f"decode_f32 digest={digest}, main shape",
+            zip(cuda_decode.decode_float_cuda(arc_b, F32, Lw, 10, n, digest),
+                cuda_decode.decode_float_plain(arc_b, F32, Lw, 10, n, digest)),
+        ))
+    err["decode_f32"] = e8
+    torch.cuda.empty_cache()
+
+    # ---- 3. path C: raw ANS ----
+    L = RAW_BYTES
+    log(f"# phase 3: path C, raw ANS {L} bytes, prob_bits 10, no checksum")
+    rng = np.random.default_rng(0)
+    datas = []
+    for _ in range(3):  # as benchmarks/sweep.py:118
+        d = np.minimum(rng.exponential(30, L), 255).astype(np.uint8)
+        datas.append(torch.from_numpy(d).to(dev))
+    del d
+
+    def path_c():
+        a, s = port.ans_encode_padded(datas[0], L, 10, False)
+        return a, s, port.ans_decode_padded(a, 10, L, False)
+
+    (arc_c, size_c, res), launches_c = drive(port, "C", path_c)
+    require(bool(res["success"]) and int(res["size"]) == L, "path C decode failed its status")
+    require(torch.equal(res["out"], datas[0]), "path C roundtrip differs")
+    size_c = int(size_c)
+    parc, psize = cuda_encode.ans_encode_padded_plain(datas[0], L, 10, False)
+    require_exact("path C archive vs plain pipeline",
+                                [(torch.tensor(size_c), psize.cpu()),
+                                 (arc_c[: size_c // 4], parc[: size_c // 4])])
+    del parc
+    sizes = [size_c]
+    for d in datas[1:]:
+        a2, s2 = port.ans_encode_padded(d, L, 10, False)
+        r2 = port.ans_decode_padded(a2, 10, L, False)
+        require(bool(r2["success"]) and torch.equal(r2["out"], d), "path C roundtrip differs")
+        sizes.append(int(s2))
+    log(f"  roundtrip exact on 3 inputs; ratios {[round(s / L, 6) for s in sizes]}")
+    a2, s2 = port.ans_encode_padded(datas[1], L, 10, True)
+    r2 = port.ans_decode_padded(a2, 10, L, True)
+    require(bool(r2["success"]) and bool(r2["checksum_ok"])
+            and torch.equal(r2["out"], datas[1]), "path C checksummed call failed")
+    log("  checksummed call: roundtrip exact, checksum verified on decode")
+    del a2, r2
+    d32c = layout.u8_to_u32le(datas[0])
+    err["hist"] = require_exact(
+        "hist ck=True, main shape",
+        zip(cuda_hist.histogram_u8_cuda(d32c, L, True),
+            cuda_hist.histogram_u8_plain(d32c, L, True)),
+    )
+    e6 = 0
+    for digest in (False, True):
+        e6 = max(e6, require_exact(
+            f"decode_raw digest={digest}, main shape",
+            zip(cuda_decode.decode_raw_cuda(arc_c, 10, L, digest),
+                cuda_decode.decode_raw_plain(arc_c, 10, L, digest)),
+        ))
+    err["decode_raw"] = e6
+    torch.cuda.empty_cache()
+    launches = {}
+    for k, (_, _, _, path) in KERNELS.items():
+        launches[k] = {"A": launches_a, "B": launches_b, "C": launches_c}[path][k]
 
     # ---- 4. timing ----
     log(f"# phase 4: timing, {ITERS} iterations, CUDA events; card: {card}")
@@ -297,9 +566,11 @@ def main():
                                              static_length=n),
         ITERS,
     )
+    del arcs
     src = inputs[0]
     dst = torch.empty_like(src)
     t_copy = time_ms(lambda: dst.copy_(src), ITERS)
+    del dst
     copy_gbps = 2 * raw_bytes / t_copy / 1e6
     # bound of either call: the input read once and the output written once
     call_bound_ms = (raw_bytes + size) / HBM_BYTES_PER_S * 1e3
@@ -318,6 +589,32 @@ def main():
     )
     log(f"  plain pipeline (compress + decompress, plain versions on the card): {t_plain:.2f} ms")
 
+    t_comp_b = time_ms(
+        lambda: port.float_compress_padded(inputs_b[next(it) % 3], n, F32, 10, False),
+        ITERS,
+    )
+    arcs = [port.float_compress_padded(w, n, F32, 10, False)[0] for w in inputs_b]
+    t_dec_b = time_ms(
+        lambda: port.float_decompress_padded(arcs[next(it) % 3], F32, Lw, 10, False,
+                                             static_length=n),
+        ITERS,
+    )
+    del arcs
+    bound_b = (raw_b + size_b) / HBM_BYTES_PER_S * 1e3
+    log(f"  path B compress   {raw_b / t_comp_b / 1e6:10.3f} GB/s  ({t_comp_b:.4f} ms; "
+        f"bytes bound {bound_b:.4f} ms; ratio {size_b / raw_b:.6f})")
+    log(f"  path B decompress {raw_b / t_dec_b / 1e6:10.3f} GB/s  ({t_dec_b:.4f} ms; "
+        f"bytes bound {bound_b:.4f} ms)")
+    t_enc_c = time_ms(lambda: port.ans_encode_padded(datas[next(it) % 3], L, 10, False), ITERS)
+    arcs = [port.ans_encode_padded(d, L, 10, False)[0] for d in datas]
+    t_dec_c = time_ms(lambda: port.ans_decode_padded(arcs[next(it) % 3], 10, L, False), ITERS)
+    del arcs
+    bound_c = (L + size_c) / HBM_BYTES_PER_S * 1e3
+    log(f"  path C encode     {L / t_enc_c / 1e6:10.3f} GB/s  ({t_enc_c:.4f} ms; "
+        f"bytes bound {bound_c:.4f} ms; ratio {size_c / L:.6f})")
+    log(f"  path C decode     {L / t_dec_c / 1e6:10.3f} GB/s  ({t_dec_c:.4f} ms; "
+        f"bytes bound {bound_c:.4f} ms)")
+
     counts = ke[1].long()
     emitted = int(counts.sum())
     padded_words = int(((counts + 7) // 8 * 8).clamp(max=2560).sum())
@@ -327,7 +624,12 @@ def main():
         "encode": (Lw + 2048 + 2 * emitted + 4 * NB + 128 * NB, n),
         "assembly": (4 * padded_words + 8 * NB, 0),
         "decode": (size + 2 * Lw, n),
+        "hist": (L + 4 * 256, L),
+        "decode_raw": (size_c + L, L),
+        "split_f32": (8 * Lw + 4 * 256, Lw),
+        "decode_f32": (size_b + 4 * Lw, n),
     }
+    wb = inputs_b[0]
     runs = {
         "split": (lambda: cuda_float.split_words_cuda(pairs, n, ft),
                   lambda: cuda_float.split_words_plain(pairs, n, ft)),
@@ -337,12 +639,24 @@ def main():
                      lambda: plain_encode.assemble_payload(asm_k, ds32, ke[0], ke[1], prefix)),
         "decode": (lambda: cuda_decode.decode_float_cuda(arc, ft, Lw, 10, n),
                    lambda: cuda_decode.decode_float_plain(arc, ft, Lw, 10, n)),
+        "hist": (lambda: cuda_hist.histogram_u8_cuda(d32c, L),
+                 lambda: cuda_hist.histogram_u8_plain(d32c, L)),
+        "decode_raw": (lambda: cuda_decode.decode_raw_cuda(arc_c, 10, L),
+                       lambda: cuda_decode.decode_raw_plain(arc_c, 10, L)),
+        "split_f32": (lambda: cuda_float.split_words_f32_cuda(wb, n),
+                      lambda: cuda_float.split_words_f32_plain(wb, n)),
+        "decode_f32": (lambda: cuda_decode.decode_float_cuda(arc_b, F32, Lw, 10, n),
+                       lambda: cuda_decode.decode_float_plain(arc_b, F32, Lw, 10, n)),
     }
+    # one torch call computing the same function, where there is one
+    library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}
     rows = []
-    for k, (source, replaces, ops_per) in KERNELS.items():
+    for k, (source, replaces, ops_per, _) in KERNELS.items():
         nbytes, nsym = work[k]
         ms = time_ms(runs[k][0], ITERS)
         plain_ms = time_ms(runs[k][1], 1, warmup=0)
+        library_ms = time_ms(library[k], ITERS) if k in library else None
+        torch.cuda.empty_cache()
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops_per * nsym / INT_OPS_PER_S * 1e3
         rows.append({
@@ -350,14 +664,16 @@ def main():
             "launches": launches[k], "max_abs_err": err[k], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "library_ms": library_ms,
         })
-        log(f"  {k:9s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}")
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        log(f"  {k:10s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
 
     for m in list(sys.modules):
         if m == "jax" or m.startswith(("jax.", "dietgpu_tpu.")) or m == "dietgpu_tpu":
             raise AssertionError(f"{m} was imported")
+    log(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""dietTPU's float codec in PyTorch and CUDA, for the NVIDIA H100.
+"""dietTPU's float codec and raw-ANS byte codec in PyTorch and CUDA, for the
+NVIDIA H100.
 
 A port of ``dietgpu_tpu`` that imports neither JAX nor the JAX package.
 Tensors on the card go through hand-written CUDA kernels (``csrc/``, built
@@ -8,6 +9,9 @@ package's.
 """
 
 from ._build import kernel_launches, reset_kernel_launches
+from .ans.cuda_decode import ans_decode_padded
+from .ans.cuda_encode import ans_encode_padded
+from .ans.cuda_hist import histogram_u8
 from .floatcodec.codec import (
     float_archive_buffer_bytes,
     float_compress,
@@ -17,11 +21,14 @@ from .floatcodec.codec import (
 )
 
 __all__ = [
+    "ans_decode_padded",
+    "ans_encode_padded",
     "float_archive_buffer_bytes",
     "float_compress",
     "float_compress_padded",
     "float_decompress",
     "float_decompress_padded",
+    "histogram_u8",
     "kernel_launches",
     "reset_kernel_launches",
 ]

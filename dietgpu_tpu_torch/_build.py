@@ -1,14 +1,16 @@
 """Builds the CUDA kernels of ``csrc/`` on first use and binds them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library under ``build/`` at the root of
-the checkout, named by the hash of its source, then loaded with ctypes.
-All sources are compiled in parallel, one ``nvcc`` each. Nothing is built
-when the package is imported.
+Each ``csrc/<source>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
+root of the checkout, named by the hash of its source, then loaded with
+ctypes. All sources are compiled in parallel, one ``nvcc`` each. Nothing is
+built when the package is imported. A source may hold several kernels
+(``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
+decode kernel), each with its own C entry point.
 
 Every wrapper launches through :func:`launch`, which checks the returned
-``cudaGetLastError()`` and counts the launch; :func:`kernel_launches` reads
-the counts.
+``cudaGetLastError()`` and counts the launch under the kernel's name;
+:func:`kernel_launches` reads the counts.
 """
 
 import ctypes
@@ -24,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("split", "encode", "assembly", "decode")
+SOURCES = ("split", "split_f32", "hist", "encode", "assembly", "decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -33,15 +35,25 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
-# C entry point and argument types of each kernel's library
+# kernel (one launch counter each) -> (source, C entry point, argument types)
 _ENTRY = {
-    "split": ("dtt_split", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
-    "encode": ("dtt_encode", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
-    "assembly": ("dtt_assemble", (_VP, _VP, _VP, _LL, _VP, _LL, _VP)),
-    "decode": (
-        "dtt_decode", (_VP, _LL, _VP, _INT, _INT, _INT, _LL, _INT, _VP, _VP)
+    "split": ("split", "dtt_split", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
+    "split_f32": (
+        "split_f32", "dtt_split_f32",
+        (_VP, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP),
     ),
+    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _VP, _VP, _VP)),
+    "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
+    "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _VP, _LL, _VP)),
+    "decode": (
+        "decode", "dtt_decode", (_VP, _LL, _VP, _INT, _INT, _INT, _LL, _INT, _VP, _VP)
+    ),
+    "decode_f32": (
+        "decode", "dtt_decode_f32", (_VP, _LL, _VP, _INT, _INT, _LL, _INT, _VP, _VP)
+    ),
+    "decode_raw": ("decode", "dtt_decode_raw", (_VP, _LL, _VP, _INT, _INT, _INT, _VP, _VP)),
 }
+KERNELS = tuple(_ENTRY)
 
 _launches = dict.fromkeys(KERNELS, 0)
 _entries = {}
@@ -66,12 +78,12 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all() -> dict:
-    """Compile every kernel whose library is missing, all in parallel.
+    """Compile every source whose library is missing, all in parallel.
 
-    Returns {name: seconds} for the ones compiled. Raises with nvcc's output
-    when a build fails.
+    Returns {source: seconds} for the ones compiled. Raises with nvcc's
+    output when a build fails.
     """
-    todo = [k for k in KERNELS if not _lib_path(k).exists()]
+    todo = [k for k in SOURCES if not _lib_path(k).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,8 +114,8 @@ def _entry(name: str):
         fn = _entries.get(name)
         if fn is None:
             build_all()
-            sym, argtypes = _ENTRY[name]
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), sym)
+            source, sym, argtypes = _ENTRY[name]
+            fn = getattr(ctypes.CDLL(str(_lib_path(source))), sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entries[name] = fn

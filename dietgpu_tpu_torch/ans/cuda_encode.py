@@ -1,18 +1,21 @@
 """rANS encode on the card: the encode kernel (``csrc/encode.cu``), the
-section prefill, and the assembly kernel (``csrc/assembly.cu``).
+section prefill, and the assembly kernel (``csrc/assembly.cu``), and the
+raw-ANS entry point that puts the histogram kernel (``csrc/hist.cu``) in
+front of them.
 
 Counterpart of ``dietgpu_tpu.ans.pallas_encode`` (``_encode_stage1``,
-``_encode_stage2``, ``_encode_finish``). A CUDA tensor goes through the
-kernels; a CPU tensor through their plain versions in :mod:`.encode`.
-The glue between them (probability quantization, tables, sections,
-prefix) is torch on either device.
+``_encode_stage2``, ``_encode_finish``, ``ans_encode_padded_pallas``). A
+CUDA tensor goes through the kernels; a CPU tensor through their plain
+versions in :mod:`.encode` and :mod:`.cuda_hist`. The glue between them
+(probability quantization, tables, sections, prefix) is torch on either
+device.
 """
 
 import torch
 
 from .. import _build
 from .. import constants as C
-from . import checksum as checksum_mod
+from . import cuda_hist
 from . import encode as plain_encode
 from . import layout, stats
 
@@ -84,40 +87,66 @@ def ans_encode_into(
 
 def ans_encode_padded(
     data, length, prob_bits=C.DEFAULT_PROB_BITS, use_checksum=False,
-    precomputed_pdf=None,
+    precomputed_histogram=None, precomputed_pdf=None,
 ):
     """Compress data[:length] into a coalesced ANS archive.
 
-    `data` is (L,) uint8 or the same bytes packed as (L/4,) int32, with L a
-    positive multiple of 4096. Returns (archive (A/4,) int32, size 0-dim
-    int64) with A = encode.archive_buffer_bytes(L); archive bytes [0, size)
-    are the archive, byte for byte the JAX package's.
+    Counterpart of ``dietgpu_tpu.backend.ans_encode_padded``. `data` is
+    (L,) uint8 or the same bytes packed as (L/4,) int32, with L a positive
+    multiple of 4096. Returns (archive (A/4,) int32, size 0-dim int64) with
+    A = encode.archive_buffer_bytes(L); archive bytes [0, size) are the
+    archive, byte for byte the JAX package's, and bytes past size are
+    unspecified. `precomputed_histogram` ((256,) counts of data[:length])
+    or `precomputed_pdf` ((256,) weights summing to 2^prob_bits) skip the
+    histogram pass.
 
-    On the card this needs `precomputed_pdf` and no checksum: the histogram
-    and checksum kernel of the raw-ANS route is not ported yet.
+    On the card the chain is the histogram kernel (with the checksum fused
+    when `use_checksum`), ``normalize_probs``, the encode kernel, the
+    sections and the assembly kernel, with no host round trip; on the CPU
+    the same chain runs through the kernels' plain versions.
     """
+    return _encode(
+        data, length, prob_bits, use_checksum, precomputed_histogram, precomputed_pdf,
+        plain=not data.is_cuda,
+    )
+
+
+def ans_encode_padded_plain(
+    data, length, prob_bits=C.DEFAULT_PROB_BITS, use_checksum=False,
+    precomputed_histogram=None, precomputed_pdf=None,
+):
+    """:func:`ans_encode_padded` through every kernel's plain version, on
+    the device of `data`: the reference the chip check holds the kernel
+    path against on the card."""
+    return _encode(
+        data, length, prob_bits, use_checksum, precomputed_histogram, precomputed_pdf,
+        plain=True,
+    )
+
+
+def _encode(data, length, prob_bits, use_checksum, precomputed_histogram,
+            precomputed_pdf, plain):
     data32 = layout.u8_to_u32le(data) if data.dtype == torch.uint8 else data
     L = data32.shape[0] * 4
     if L == 0 or L % C.DEFAULT_BLOCK_SIZE:
         raise ValueError(f"ans encode: {L} bytes is not a positive multiple of 4096")
     if not 0 <= length <= L:
         raise ValueError(f"ans encode: length {length} outside [0, {L}]")
-    if data32.is_cuda and (precomputed_pdf is None or use_checksum):
-        raise NotImplementedError(
-            "raw-ANS encode on CUDA needs the histogram kernel (not ported)"
-        )
-    data8 = layout.u32_to_u8le(data32)
-    if precomputed_pdf is None:
-        hist = stats.histogram_u8(data8, length)
-        pdf = stats.normalize_probs(hist, length, prob_bits)
+    dev = data32.device
+    hist = cks = None
+    if (precomputed_pdf is None and precomputed_histogram is None) or use_checksum:
+        hist_fn = cuda_hist.histogram_u8_plain if plain else cuda_hist.histogram_u8_cuda
+        hist, cks = hist_fn(data32, length, with_checksum=use_checksum)
+    if precomputed_pdf is not None:
+        pdf = layout.to_u32(precomputed_pdf.to(dev))
     else:
-        pdf = layout.to_u32(precomputed_pdf.to(data32.device))
-    cks = checksum_mod.checksum_u8(data8, length) if use_checksum else None
-    arc32 = torch.zeros(
-        plain_encode.archive_buffer_bytes(L) // 4, dtype=torch.int32, device=data32.device
+        if precomputed_histogram is not None:
+            hist = precomputed_histogram.to(dev)
+        pdf = stats.normalize_probs(hist, length, prob_bits)
+    arc32 = torch.empty(
+        plain_encode.archive_buffer_bytes(L) // 4, dtype=torch.int32, device=dev
     )
     size = ans_encode_into(
-        arc32, 0, data32, length, prob_bits, pdf, use_checksum, cks,
-        plain=not data32.is_cuda,
+        arc32, 0, data32, length, prob_bits, pdf, use_checksum, cks, plain=plain
     )
     return arc32, size

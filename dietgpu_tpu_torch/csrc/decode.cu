@@ -1,39 +1,55 @@
-// Fused rANS decode + f16/bf16 join, straight out of a float container.
+// Fused rANS decode, in three configurations of one kernel template:
 //
-// Replaces: dietgpu_tpu/ans/pallas_decode.py:_decode_kernel with
-// fuse_float in {FLOAT16, BFLOAT16} (ans_decode_padded_pallas), the
-// reference's ansDecodeKernel with the fused JoinFloatWriter
-// (GpuANSDecode.cuh:305-403, GpuFloatDecompress.cuh:391-521).
+//   kHalf -- f16/bf16 join, straight out of a float container;
+//   kF32  -- f32 3-plane join (exponent, low u16, high u8), straight out of
+//            a float container;
+//   kRaw  -- raw bytes, out of a bare ANS archive.
 //
-// Bound on the H100: operations, not bytes. The kernel reads the nonComp
-// plane (1 B per word) and the compressed exponents once and writes each
-// word once (2 B), but each symbol is a dependent chain (LUT lookup,
-// multiply, compare, warp vote, stream read) 128 steps deep per warp. The
-// least time counted for it is its bytes over 3.35 TB/s.
+// Replaces: dietgpu_tpu/ans/pallas_decode.py:_decode_kernel with fuse_float
+// in {FLOAT16, BFLOAT16} (kHalf), FLOAT32 (kF32) and None (kRaw, the raw
+// driver at pallas_decode.py:1609-1628), the reference's ansDecodeKernel
+// (GpuANSDecode.cuh:305-403) with and without the fused JoinFloatWriter
+// (GpuFloatDecompress.cuh:391-521, GpuFloatUtils.cuh:111-203).
+//
+// Bound on the H100: operations, not bytes. The kernel reads the raw planes
+// (1 B per f16/bf16 word, 3 B per f32 word, none for raw bytes) and the
+// compressed exponents once and writes each output once, but each symbol is
+// a dependent chain (LUT lookup, multiply, compare, warp vote, stream read)
+// 128 steps deep per warp. The least time counted for it is its bytes over
+// 3.35 TB/s.
 //
 // Design: a persistent grid, one warp per 4 KiB block at a time, as in the
-// reference. Every CTA parses the float header and the embedded ANS header
-// itself and builds the 2^prob_bits decode LUT, (sminus << 20) | (pdf << 8)
-// | sym as in decode.py:46-59, in shared memory from the archive's pdf, so
-// the decode needs no host round trip and no table pass in device memory.
-// A warp first copies its block's compressed stream (at most 2560 u16) to
-// shared memory with coalesced loads; the backward refill reads then cost
-// a shared-memory access instead of a dependent device-memory load each
-// step. Lanes start from the archived final states; steps run from s = 127
-// (or the ragged last step) down to 0; a lane whose state falls below 2^15
-// refills from stream[pos - rank], rank taken from a reversed __popc of
-// the ballot. Symbols collect in shared memory and are then joined with
-// the nonComp bytes in 4-word groups and written as finished, tail-masked
-// word pairs with 8-byte stores; words past n are zero. The optional XOR
-// digest of the output is folded per warp and merged with atomicXor.
+// reference. Every CTA parses the headers itself -- for a float container
+// the float header, then the ANS header at the offset its word count gives
+// (4 + round_up(n, 16)/4 u32 for f16/bf16, 4 + round_up(n, 8)/2 +
+// round_up(n, 16)/4 for f32, whose high plane starts at 4 + round_up(n,
+// 8)/2); for a raw archive the ANS header at u32 0 -- and builds the
+// 2^prob_bits decode LUT, (sminus << 20) | (pdf << 8) | sym as in
+// decode.py:46-59, in shared memory from the archive's pdf, so the decode
+// needs no host round trip and no table pass in device memory. A warp first
+// copies its block's compressed stream (at most 2560 u16) to shared memory
+// with coalesced loads; the backward refill reads then cost a shared-memory
+// access instead of a dependent device-memory load each step. Lanes start
+// from the archived final states; steps run from s = 127 (or the ragged
+// last step) down to 0; a lane whose state falls below 2^15 refills from
+// stream[pos - rank], rank taken from a reversed __popc of the ballot.
+// Symbols collect in shared memory and then leave in groups of 4: as
+// finished, tail-masked f16/bf16 word pairs (8-byte stores), as finished,
+// tail-masked f32 words (16-byte stores), or as raw bytes (16-byte stores
+// of 16 symbols); outputs past a block's symbols are zero. The optional
+// XOR digest of the output is folded per warp and merged with atomicXor.
 //
-// Every read goes through a clamp to the buffer, so a lying header can
-// only fail `success` (status[0]) and never read or write out of bounds.
+// Every read goes through a clamp to the buffer, so a lying header can only
+// fail `success` (status[0]) and never read or write out of bounds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kHalf = 0;
+constexpr int kF32 = 1;
+constexpr int kRaw = 2;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -54,9 +70,10 @@ __device__ __forceinline__ long long clampll(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ arc, long long a32,
-              uint2* __restrict__ out, int nb_cap, int float_type,
+              void* __restrict__ out_v, int nb_cap, int float_type,
               int prob_bits, long long static_length, int with_digest,
               uint32_t* __restrict__ status) {
   __shared__ uint32_t lut[2048];
@@ -67,27 +84,46 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // output capacity: words of a float container, bytes of a raw archive
   const long long Lw = (long long)nb_cap * kBlockBytes;
 
-  // ---- float header, then the ANS header at the container's arc_base ----
-  const int n = (int)ld(arc, a32, 1);
-  const uint32_t fopt = ld(arc, a32, 2);
-  bool ok = ld(arc, a32, 0) == kFloatMagic &&
-            (fopt & 0xfu) == (uint32_t)float_type && n <= Lw;
-  if (static_length >= 0) {
-    ok = ok && (long long)n == (static_length < Lw ? static_length : Lw);
+  // ---- headers: success, the ANS archive's base, the planes' bases ----
+  long long base = 0;
+  long long hi_base = 0;
+  long long n_eff = 0;
+  bool ok;
+  uint32_t n_word;
+  if constexpr (kMode == kRaw) {
+    n_word = ld(arc, a32, 2);
+    ok = ld(arc, a32, 0) == kAnsMagic &&
+         (ld(arc, a32, 4) & 0xfu) == (uint32_t)prob_bits &&
+         (int)n_word <= Lw;
+  } else {
+    n_word = ld(arc, a32, 1);
+    const int n = (int)n_word;
+    const uint32_t fopt = ld(arc, a32, 2);
+    ok = ld(arc, a32, 0) == kFloatMagic &&
+         (fopt & 0xfu) == (uint32_t)float_type && n <= Lw;
+    if (static_length >= 0) {
+      ok = ok && (long long)n == (static_length < Lw ? static_length : Lw);
+    }
+    n_eff = clampll(n, 0, Lw);
+    if constexpr (kMode == kF32) {
+      hi_base = 4 + ((n_eff + 7) / 8) * 4;
+      base = hi_base + ((n_eff + 15) / 16) * 4;
+    } else {
+      base = 4 + ((n_eff + 15) / 16) * 4;
+    }
+    const int an = (int)ld(arc, a32, base + 2);
+    ok = ok && ld(arc, a32, base) == kAnsMagic &&
+         (ld(arc, a32, base + 4) & 0xfu) == (uint32_t)prob_bits && an <= Lw &&
+         (long long)an == n_eff;
   }
-  const long long n_eff = clampll(n, 0, Lw);
-  const long long base = 4 + ((n_eff + 15) / 16) * 4;
   const int nb = (int)ld(arc, a32, base + 1);
-  const int an = (int)ld(arc, a32, base + 2);
-  ok = ok && ld(arc, a32, base) == kAnsMagic &&
-       (ld(arc, a32, base + 4) & 0xfu) == (uint32_t)prob_bits && an <= Lw &&
-       (long long)an == n_eff;
   const long long nb_eff = clampll(nb, 0, nb_cap);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     status[0] = ok ? 1u : 0u;
-    status[1] = (uint32_t)n;
+    status[1] = n_word;
   }
 
   // ---- decode LUT from the archive pdf: sym = #{incl <= slot} ----
@@ -146,7 +182,7 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
       const int rem = uncomp % 32;
       kmax = steps < 128 ? steps : 128;
 
-      // the block's stream, u16 index sbase.. in the container
+      // the block's stream, u16 index sbase.. in the archive
       const long long sbase = 2 * ds32 + start;
       const int odd = (int)(sbase & 1);
       const int cwc = cw < kMaxWords ? cw : kMaxWords;
@@ -182,22 +218,56 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
     for (int i = kmax * 32 + lane; i < kBlockBytes; i += 32) sy[i] = 0;
     __syncwarp();
 
-    // ---- join 4 words at a time with the nonComp plane at byte 16 ----
     const uint32_t* s4 = reinterpret_cast<const uint32_t*>(sy);
-    for (int j = lane; j < kBlockBytes / 4; j += 32) {
-      const uint32_t sv = s4[j];
-      const uint32_t nc = ld(arc, a32, 4 + b * (kBlockBytes / 4) + j);
-      const long long i0 = b * kBlockBytes + 4LL * j;
-      uint32_t w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t v = (((sv >> (8 * q)) & 0xffu) << 8) | ((nc >> (8 * q)) & 0xffu);
-        if (bf16) v = ((v >> 1) | (v << 15)) & 0xffffu;
-        w[q] = i0 + q < n_eff ? v : 0u;
+    if constexpr (kMode == kRaw) {
+      // ---- raw bytes: 16 symbols per 16-byte store ----
+      uint4* out = static_cast<uint4*>(out_v);
+      const uint4* q4 = reinterpret_cast<const uint4*>(sy);
+      for (int j = lane; j < kBlockBytes / 16; j += 32) {
+        const uint4 o = q4[j];
+        out[b * (kBlockBytes / 16) + j] = o;
+        digest ^= o.x ^ o.y ^ o.z ^ o.w;
       }
-      const uint2 o = make_uint2(w[0] | (w[1] << 16), w[2] | (w[3] << 16));
-      out[b * (kBlockBytes / 4) + j] = o;
-      digest ^= o.x ^ o.y;
+    } else if constexpr (kMode == kF32) {
+      // ---- join 4 words at a time with the low plane at u32 4 + 2048 b
+      // and the high plane at u32 hi_base + 1024 b ----
+      uint4* out = static_cast<uint4*>(out_v);
+      for (int j = lane; j < kBlockBytes / 4; j += 32) {
+        const uint32_t sv = s4[j];
+        const uint32_t hv = ld(arc, a32, hi_base + b * (kBlockBytes / 4) + j);
+        const long long lo_i = 4 + b * (kBlockBytes / 2) + 2 * j;
+        const uint32_t lv[2] = {ld(arc, a32, lo_i), ld(arc, a32, lo_i + 1)};
+        const long long i0 = b * kBlockBytes + 4LL * j;
+        uint32_t w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t v = (((sv >> (8 * q)) & 0xffu) << 24) |
+                             (((hv >> (8 * q)) & 0xffu) << 16) |
+                             ((lv[q >> 1] >> (16 * (q & 1))) & 0xffffu);
+          w[q] = i0 + q < n_eff ? ((v >> 1) | (v << 31)) : 0u;
+        }
+        const uint4 o = make_uint4(w[0], w[1], w[2], w[3]);
+        out[b * (kBlockBytes / 4) + j] = o;
+        digest ^= o.x ^ o.y ^ o.z ^ o.w;
+      }
+    } else {
+      // ---- join 4 words at a time with the nonComp plane at byte 16 ----
+      uint2* out = static_cast<uint2*>(out_v);
+      for (int j = lane; j < kBlockBytes / 4; j += 32) {
+        const uint32_t sv = s4[j];
+        const uint32_t nc = ld(arc, a32, 4 + b * (kBlockBytes / 4) + j);
+        const long long i0 = b * kBlockBytes + 4LL * j;
+        uint32_t w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t v = (((sv >> (8 * q)) & 0xffu) << 8) | ((nc >> (8 * q)) & 0xffu);
+          if (bf16) v = ((v >> 1) | (v << 15)) & 0xffffu;
+          w[q] = i0 + q < n_eff ? v : 0u;
+        }
+        const uint2 o = make_uint2(w[0] | (w[1] << 16), w[2] | (w[3] << 16));
+        out[b * (kBlockBytes / 4) + j] = o;
+        digest ^= o.x ^ o.y;
+      }
     }
     __syncwarp();
   }
@@ -213,30 +283,57 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
   }
 }
 
-}  // namespace
-
-// arc: the float container, a32 u32 words. out: nb_cap * 4096 words as
-// 8-byte aligned u32 pairs. status: 3 u32 zeroed by the caller; receives
-// success, the header's word count and the folded output digest.
-// static_length < 0 means none.
-extern "C" int dtt_decode(const void* arc, long long a32, void* out,
-                          int nb_cap, int float_type, int prob_bits,
-                          long long static_length, int with_digest,
-                          void* status, void* stream) {
+template <int kMode>
+int launch_decode(const void* arc, long long a32, void* out, int nb_cap,
+                  int float_type, int prob_bits, long long static_length,
+                  int with_digest, void* status, void* stream) {
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
                                                 kThreads, 0);
   long long grid = (nb_cap + kWarps - 1) / kWarps;
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > cap) grid = cap;
   if (grid < 1) grid = 1;
-  decode_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(arc), a32, static_cast<uint2*>(out),
-      nb_cap, float_type, prob_bits, static_length, with_digest,
-      static_cast<uint32_t*>(status));
+  decode_kernel<kMode><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(arc), a32, out, nb_cap, float_type,
+      prob_bits, static_length, with_digest, static_cast<uint32_t*>(status));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Every entry point: arc holds a32 u32 words; status is 3 u32 zeroed by the
+// caller and receives success, the header's count (words of a float
+// container, bytes of a raw archive) and the folded output digest.
+// static_length < 0 means none.
+
+// f16/bf16 container -> nb_cap * 4096 words as 8-byte aligned u32 pairs.
+extern "C" int dtt_decode(const void* arc, long long a32, void* out,
+                          int nb_cap, int float_type, int prob_bits,
+                          long long static_length, int with_digest,
+                          void* status, void* stream) {
+  return launch_decode<kHalf>(arc, a32, out, nb_cap, float_type, prob_bits,
+                              static_length, with_digest, status, stream);
+}
+
+// f32 container -> nb_cap * 4096 u32 words, 16-byte aligned.
+extern "C" int dtt_decode_f32(const void* arc, long long a32, void* out,
+                              int nb_cap, int prob_bits,
+                              long long static_length, int with_digest,
+                              void* status, void* stream) {
+  return launch_decode<kF32>(arc, a32, out, nb_cap, 3, prob_bits,
+                             static_length, with_digest, status, stream);
+}
+
+// raw ANS archive -> nb_cap * 4096 bytes, 16-byte aligned, zero past each
+// block's symbols.
+extern "C" int dtt_decode_raw(const void* arc, long long a32, void* out,
+                              int nb_cap, int prob_bits, int with_digest,
+                              void* status, void* stream) {
+  return launch_decode<kRaw>(arc, a32, out, nb_cap, 0, prob_bits, -1,
+                             with_digest, status, stream);
 }

@@ -1,20 +1,24 @@
-"""Float codec (f16/bf16): compress and decompress, on the card or the CPU.
+"""Float codec (f16/bf16/f32): compress and decompress, on the card or the
+CPU.
 
-Counterpart of ``dietgpu_tpu.floatcodec.pallas_codec`` (f16/bf16 paths)
-and ``dietgpu_tpu.floatcodec.codec``. The container layout is the
-reference's (GpuFloatCompress.cuh:420-427):
+Counterpart of ``dietgpu_tpu.floatcodec.pallas_codec`` and
+``dietgpu_tpu.floatcodec.codec``. The container layouts are the
+reference's (GpuFloatCompress.cuh:420-427, GpuFloatUtils.cuh:181-203):
 
-  [16 B float header | nonComp plane, round_up(n, 16) B | ANS archive]
+  f16/bf16: [16 B float header | nonComp plane, round_up(n, 16) B |
+             ANS archive]
+  f32:      [16 B float header | low-u16 plane, 2 round_up(n, 8) B |
+             high-u8 plane, round_up(n, 16) B | ANS archive]
 
 held as an int32 buffer whose little-endian bytes are the container.
 
-Compress runs the split kernel (which writes the nonComp plane straight
-into the container), quantizes the exponent histogram, then encodes the
-exponent plane into the container at u32 offset 4 + round_up(n, 16)/4.
-Decompress is one fused decode+join kernel on the container. Tensors on
-the card go through the kernels, tensors on the CPU through their plain
-versions; nothing else selects the path. float_compress_padded_plain is
-the plain pipeline on any device, the reference for the kernel path.
+Compress runs the split kernel (which writes the raw planes straight into
+the container), quantizes the exponent histogram, then encodes the
+exponent plane into the container right after the planes. Decompress is
+one fused decode+join kernel on the container. Tensors on the card go
+through the kernels, tensors on the CPU through their plain versions;
+nothing else selects the path. float_compress_padded_plain is the plain
+pipeline on any device, the reference for the kernel path.
 """
 
 import torch
@@ -22,7 +26,7 @@ import torch
 from .. import constants as C
 from ..ans import cuda_decode, cuda_encode, layout, stats
 from ..ans import encode as ans_encode
-from . import cuda_float, split
+from . import cuda_float
 
 
 def float_archive_buffer_bytes(float_type: int, padded_words: int) -> int:
@@ -34,14 +38,18 @@ def float_archive_buffer_bytes(float_type: int, padded_words: int) -> int:
     )
 
 
-def _as_pairs(words: torch.Tensor) -> torch.Tensor:
-    """(Lw/2,) int32 word pairs, or (Lw,) int16/uint16 words -> int32 pairs
-    (a view, no copy)."""
+def _as_words(words: torch.Tensor, float_type: int) -> torch.Tensor:
+    """f16/bf16: (Lw/2,) int32 word pairs, or (Lw,) int16/uint16 words ->
+    int32 pairs. f32: (Lw,) int32 words, or float32 values -> int32 words.
+    A view, no copy."""
     if words.dim() != 1 or not words.is_contiguous():
         raise ValueError("float codec: words must be a contiguous 1-D tensor")
     if words.dtype == torch.int32:
         return words
-    if words.dtype in (torch.int16, torch.uint16):
+    if float_type == C.FLOAT_TYPE_FLOAT32:
+        if words.dtype == torch.float32:
+            return words.view(torch.int32)
+    elif words.dtype in (torch.int16, torch.uint16):
         if words.shape[0] % 2:
             raise ValueError("float codec: odd number of 16-bit words")
         return words.view(torch.int16).view(torch.int32)
@@ -55,11 +63,12 @@ def float_compress_padded(
     prob_bits: int = C.DEFAULT_PROB_BITS,
     use_checksum: bool = False,
 ):
-    """Compress the first `length` f16/bf16 words of `words`.
+    """Compress the first `length` float words of `words`.
 
     Args:
-      words: (Lw/2,) int32 word pairs (the layout bench.py passes) or (Lw,)
-        int16/uint16 words, Lw a positive multiple of 4096.
+      words: f16/bf16: (Lw/2,) int32 word pairs (the layout bench.py
+        passes) or (Lw,) int16/uint16 words; f32: (Lw,) int32 words or
+        float32 values. Lw is a positive multiple of 4096.
       length: word count, 0 <= length <= Lw.
 
     Returns (archive (F/4,) int32, size 0-dim int64 bytes on the device),
@@ -87,21 +96,34 @@ def float_compress_padded_plain(
 
 
 def _compress(words, length, float_type, prob_bits, use_checksum, plain):
-    if float_type not in split.HALF_TYPES:
-        raise ValueError(f"float type {float_type} is not f16/bf16")
+    if float_type not in cuda_decode.FLOAT_TYPES:
+        raise ValueError(f"float type {float_type} is not f16/bf16/f32")
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    pairs = _as_pairs(words)
-    Lw = 2 * pairs.shape[0]
-    dev = pairs.device
+    words = _as_words(words, float_type)
+    dev = words.device
+    f32 = float_type == C.FLOAT_TYPE_FLOAT32
+    Lw = words.shape[0] if f32 else 2 * words.shape[0]
     arc32 = torch.empty(
         float_archive_buffer_bytes(float_type, Lw) // 4, dtype=torch.int32, device=dev
     )
-    split_fn = cuda_float.split_words_plain if plain else cuda_float.split_words_cuda
-    exp32, _, hist, cks = split_fn(
-        pairs, length, float_type, with_checksum=use_checksum,
-        nc_out=arc32[4 : 4 + Lw // 4],
-    )
+    if f32:
+        split_fn = (
+            cuda_float.split_words_f32_plain if plain else cuda_float.split_words_f32_cuda
+        )
+        hi_base = 4 + C.round_up(length, 8) // 2
+        exp32, _, _, hist, cks = split_fn(
+            words, length, with_checksum=use_checksum,
+            lo_out=arc32[4 : 4 + Lw // 2], hi_out=arc32[hi_base : hi_base + Lw // 4],
+        )
+        base = hi_base + C.round_up(length, 16) // 4
+    else:
+        split_fn = cuda_float.split_words_plain if plain else cuda_float.split_words_cuda
+        exp32, _, hist, cks = split_fn(
+            words, length, float_type, with_checksum=use_checksum,
+            nc_out=arc32[4 : 4 + Lw // 4],
+        )
+        base = 4 + C.round_up(length, 16) // 4
     pdf = stats.normalize_probs(hist, length, prob_bits)
 
     header = torch.tensor(
@@ -117,11 +139,10 @@ def _compress(words, length, float_type, prob_bits, use_checksum, plain):
         header[3] = cks
     arc32[:4] = layout.to_i32(header)
 
-    plane32 = C.round_up(length, 16) // 4
     ans_size = cuda_encode.ans_encode_into(
-        arc32, 4 + plane32, exp32, length, prob_bits, pdf, plain=plain
+        arc32, base, exp32, length, prob_bits, pdf, plain=plain
     )
-    return arc32, ans_size + (C.FLOAT_HEADER_BYTES + 4 * plane32)
+    return arc32, ans_size + 4 * base
 
 
 def float_decompress_padded(
@@ -138,8 +159,9 @@ def float_decompress_padded(
     word count differs from min(static_length, out_max_words), `success`
     fails.
 
-    Returns dict: out32 ((out_max_words/2,) int32 word pairs, zero past the
-    word count), size (int64, header word count), success (bool),
+    Returns dict: out32 ((out_max_words/2,) int32 word pairs for f16/bf16,
+    (out_max_words,) int32 words for f32, zero past the word count), size
+    (int64, header word count), success (bool),
     checksum_ok (bool; False only on a verified mismatch), all on the
     archive's device.
     """
@@ -162,6 +184,7 @@ def float_decompress_padded(
 _TYPES = {
     torch.float16: C.FLOAT_TYPE_FLOAT16,
     torch.bfloat16: C.FLOAT_TYPE_BFLOAT16,
+    torch.float32: C.FLOAT_TYPE_FLOAT32,
 }
 
 
@@ -177,17 +200,19 @@ def float_compress(
     x: torch.Tensor, prob_bits: int = C.DEFAULT_PROB_BITS,
     use_checksum: bool = False, device=None,
 ) -> torch.Tensor:
-    """Compress an f16/bf16 tensor; returns the archive as (size/4,) int32.
+    """Compress an f16/bf16/f32 tensor; returns the archive as (size/4,)
+    int32.
 
     `device=None` means the card (and raises if there is none).
     """
     if x.dtype not in _TYPES:
-        raise ValueError(f"float_compress: dtype {x.dtype} is not f16/bf16")
+        raise ValueError(f"float_compress: dtype {x.dtype} is not f16/bf16/f32")
     dev = _device(device)
     n = x.numel()
     Lw = C.round_up(max(n, 1), C.DEFAULT_BLOCK_SIZE)
-    words = torch.zeros(Lw, dtype=torch.int16, device=dev)
-    words[:n] = x.detach().reshape(-1).view(torch.int16).to(dev)
+    wdtype = torch.int32 if x.dtype == torch.float32 else torch.int16
+    words = torch.zeros(Lw, dtype=wdtype, device=dev)
+    words[:n] = x.detach().reshape(-1).view(wdtype).to(dev)
     arc32, size = float_compress_padded(
         words, n, _TYPES[x.dtype], prob_bits, use_checksum
     )
@@ -200,7 +225,8 @@ def float_compress(
 def float_decompress(
     archive: torch.Tensor, prob_bits: int = C.DEFAULT_PROB_BITS, device=None
 ) -> torch.Tensor:
-    """Decompress an archive from float_compress into a 1-D f16/bf16 tensor.
+    """Decompress an archive from float_compress into a 1-D f16/bf16/f32
+    tensor.
 
     `device=None` means the card (and raises if there is none). Raises
     ValueError when the archive does not decode or fails its checksum.
@@ -212,7 +238,7 @@ def float_decompress(
     h = layout.to_u32(arc32[:4]).tolist()
     types = {v: k for k, v in _TYPES.items()}
     if h[2] & 0xF not in types:
-        raise ValueError("float_decompress: not an f16/bf16 archive")
+        raise ValueError("float_decompress: not a float archive")
     n = h[1]
     Lw = C.round_up(max(n, 1), C.DEFAULT_BLOCK_SIZE)
     res = float_decompress_padded(

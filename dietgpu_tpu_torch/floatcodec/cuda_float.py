@@ -1,9 +1,13 @@
-"""The f16/bf16 split kernel (``csrc/split.cu``) and its plain version.
+"""The float split kernels (``csrc/split.cu``, ``csrc/split_f32.cu``) and
+their plain versions.
 
-Counterpart of ``dietgpu_tpu.floatcodec.pallas_float.split_words_pallas``:
-(Lw/2,) u32 word pairs become the packed exponent plane and the packed
-nonComp plane, (Lw/4,) u32 each, plus the exact exponent histogram of the
-first `length` words and the folded XOR checksum of their bytes.
+Counterpart of ``dietgpu_tpu.floatcodec.pallas_float.split_words_pallas``
+and ``split_words_pallas_f32``. For f16/bf16, (Lw/2,) u32 word pairs
+become the packed exponent plane and the packed nonComp plane, (Lw/4,) u32
+each; for f32, (Lw,) u32 words become the packed exponent plane (Lw/4,),
+the packed low-u16 plane (Lw/2,) and the packed high-u8 plane (Lw/4,).
+Both also give the exact exponent histogram of the first `length` words
+and the folded XOR checksum of their bytes.
 
 The codec takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor.
@@ -76,3 +80,76 @@ def split_words_cuda(pairs, length, float_type, with_checksum=False, nc_out=None
         cks.data_ptr() if with_checksum else None,
     )
     return exp32, nc_out, hist, cks[0]
+
+
+def _check_f32(words: torch.Tensor, length: int):
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise ValueError("split f32: words must be a 1-D int32 tensor")
+    Lw = words.shape[0]
+    if Lw == 0 or Lw % C.DEFAULT_BLOCK_SIZE:
+        raise ValueError(f"split f32: {Lw} words is not a positive multiple of 4096")
+    if not 0 <= length <= Lw:
+        raise ValueError(f"split f32: length {length} outside [0, {Lw}]")
+    return Lw
+
+
+def _into(out, plane32, keep32):
+    """Copy the first keep32 u32 of a plane into `out`, if given."""
+    if out is None:
+        return plane32
+    out[:keep32].copy_(plane32[:keep32])
+    return out
+
+
+def split_words_f32_plain(words, length, with_checksum=False, lo_out=None, hi_out=None):
+    """Plain torch version of the f32 split kernel.
+
+    (Lw,) int32 f32 words -> (exp32 (Lw/4,), lo32 (Lw/2,), hi32 (Lw/4,),
+    hist int32 (256,), checksum int32 0-dim). Words at index >= length
+    count as zero: they are zero in every plane and left out of the
+    histogram. `checksum` is the folded XOR of the first 4 * length bytes
+    when `with_checksum`, else 0. `lo_out` / `hi_out`, if given, receive
+    only the archived part of their plane in place: round_up(length, 8)/2
+    u32 of the low plane and round_up(length, 16)/4 u32 of the high plane
+    (the codec passes the container's plane regions, which the next
+    section follows at once).
+    """
+    Lw = _check_f32(words, length)
+    dev = words.device
+    valid = torch.arange(Lw, device=dev) < length
+    words = torch.where(valid, words, torch.zeros((), dtype=torch.int32, device=dev))
+    comp, (lo, hi) = split.split_words(words, C.FLOAT_TYPE_FLOAT32)
+    hist = stats.histogram_u8(comp, length).to(torch.int32)
+    cks = (
+        checksum.checksum_u8(words.view(torch.uint8), 4 * length)
+        if with_checksum
+        else torch.zeros((), dtype=torch.int64, device=dev)
+    ).to(torch.int32)
+    lo32 = _into(lo_out, lo.view(torch.int32), C.round_up(length, 8) // 2)
+    hi32 = _into(hi_out, layout.u8_to_u32le(hi), C.round_up(length, 16) // 4)
+    return layout.u8_to_u32le(comp), lo32, hi32, hist, cks
+
+
+def split_words_f32_cuda(words, length, with_checksum=False, lo_out=None, hi_out=None):
+    """Launch ``csrc/split_f32.cu``; same contract as
+    :func:`split_words_f32_plain`."""
+    Lw = _check_f32(words, length)
+    _build.check_cuda_tensor(words, "split f32 words", torch.int32)
+    dev = words.device
+    exp32 = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
+    lo_quads = Lw // 4 if lo_out is None else C.round_up(length, 8) // 4
+    hi_quads = Lw // 4 if hi_out is None else C.round_up(length, 16) // 4
+    if lo_out is None:
+        lo_out = torch.empty(Lw // 2, dtype=torch.int32, device=dev)
+    if hi_out is None:
+        hi_out = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
+    _build.check_cuda_tensor(lo_out, "split f32 lo_out", torch.int32, Lw // 2, align=8)
+    _build.check_cuda_tensor(hi_out, "split f32 hi_out", torch.int32, Lw // 4, align=4)
+    hist = torch.zeros(C.NUM_SYMBOLS, dtype=torch.int32, device=dev)
+    cks = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.launch(
+        "split_f32", words.data_ptr(), Lw // 4, length, exp32.data_ptr(),
+        lo_out.data_ptr(), lo_quads, hi_out.data_ptr(), hi_quads, hist.data_ptr(),
+        cks.data_ptr() if with_checksum else None,
+    )
+    return exp32, lo_out, hi_out, hist, cks[0]

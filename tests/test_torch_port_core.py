@@ -80,9 +80,16 @@ def test_import_hygiene_no_jax():
         from dietgpu_tpu_torch.floatcodec import codec
 
         x = torch.randn(5000, generator=torch.Generator().manual_seed(1))
-        arc = port.float_compress(x.to(torch.bfloat16), use_checksum=True, device="cpu")
-        y = port.float_decompress(arc, device="cpu")
-        assert torch.equal(y, x.to(torch.bfloat16))
+        for dtype in (torch.bfloat16, torch.float32):
+            arc = port.float_compress(x.to(dtype), use_checksum=True, device="cpu")
+            y = port.float_decompress(arc, device="cpu")
+            assert torch.equal(y, x.to(dtype))
+        data = (x.abs() * 20).to(torch.uint8)[:4096]
+        arc, size = port.ans_encode_padded(data, 4000, 10, use_checksum=True)
+        res = port.ans_decode_padded(arc, 10, 4096, verify_checksum=True)
+        assert bool(res["success"]) and bool(res["checksum_ok"])
+        assert torch.equal(res["out"][:4000], data[:4000])
+        assert int(port.histogram_u8(data, 4000).sum()) == 4000
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "dietgpu_tpu")]
         print("OK")
         """

@@ -23,7 +23,7 @@ from dietgpu_tpu_torch import constants as C
 from dietgpu_tpu_torch import interop
 from dietgpu_tpu_torch.ans import cuda_decode
 from dietgpu_tpu_torch.floatcodec import codec
-from torch_port_helpers import cuda_device  # noqa: F401
+from torch_port_helpers import cuda_device, interpret_pallas  # noqa: F401
 
 LW = 16384  # one padded shape keeps JAX's compiles few
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -150,7 +150,10 @@ def test_convenience_entry_points_cpu(monkeypatch):
         port.float_compress(x.to(torch.bfloat16))
     with pytest.raises(RuntimeError):
         port.float_decompress(arc)
-    assert set(port.kernel_launches()) == {"split", "encode", "assembly", "decode"}
+    assert set(port.kernel_launches()) == {
+        "split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
+        "decode_raw",
+    }
 
 
 def test_decode_plain_digest_equals_stored_checksum():
@@ -160,37 +163,6 @@ def test_decode_plain_digest_equals_stored_checksum():
     out32, ok, n, digest = cuda_decode.decode_float_plain(arc32, F16, LW, 10, 12345, True)
     assert bool(ok) and int(n) == 12345
     assert int(digest) == int(arc32[3])  # the stored word checksum
-
-
-@pytest.fixture()
-def interpret_pallas(monkeypatch):
-    """Force pallas_call interpret mode and clear build caches (the same
-    patch as tests/test_pallas.py)."""
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    import dietgpu_tpu.ans.pallas_decode as pdec
-    import dietgpu_tpu.ans.pallas_encode as penc
-    import dietgpu_tpu.ans.pallas_hist as phist
-    import dietgpu_tpu.floatcodec.pallas_float as pf
-
-    monkeypatch.setattr(pl, "pallas_call", patched)
-    for mod in (pdec, penc, phist, pf):
-        for name in dir(mod):
-            obj = getattr(mod, name)
-            if hasattr(obj, "cache_clear"):
-                obj.cache_clear()
-    yield
-    for mod in (pdec, penc, phist, pf):
-        for name in dir(mod):
-            obj = getattr(mod, name)
-            if hasattr(obj, "cache_clear"):
-                obj.cache_clear()
 
 
 def test_archive_matches_pallas_codec_interpret(interpret_pallas):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the port's main-path time goes on the card.
+"""Where the port's time goes on the card, on each path of chip_smoke.py.
 
-Compresses and decompresses 128Mi bf16 words (made as bench.py makes
-them, prob_bits 10, no checksum) with ``dietgpu_tpu_torch`` and reports,
-for each of the two calls:
+With ``dietgpu_tpu_torch``, prob_bits 10, no checksum: path A compresses
+and decompresses 128Mi bf16 words (made as bench.py makes them), path B
+128Mi f32 words (standard normal), path C encodes and decodes 2^28
+exponential bytes (as benchmarks/sweep.py makes them). For each call it
+reports:
 
 - wall: CUDA-event time of the call, synchronised, averaged;
 - enqueue: host time until the call returns, before synchronising;
@@ -47,17 +49,29 @@ def main():
     ).stdout.strip().splitlines()[0]
     n = MWORDS * 1024 * 1024
     Lw = C.round_up(n, C.DEFAULT_BLOCK_SIZE)
-    ft = C.FLOAT_TYPE_BFLOAT16
+    L = 1 << 28
+    bf16, f32 = C.FLOAT_TYPE_BFLOAT16, C.FLOAT_TYPE_FLOAT32
     x = np.random.default_rng(0).standard_normal(Lw).astype(np.float32)
     w = (x.view(np.uint32) >> 16).astype(np.uint16)
     w[n:] = 0
     words = torch.from_numpy(w.view(np.int32)).cuda()
-    arc, _ = port.float_compress_padded(words, n, ft, 10, False)
+    words_f32 = torch.from_numpy(x.view(np.int32)).cuda()
+    raw = np.minimum(np.random.default_rng(0).exponential(30, L), 255).astype(np.uint8)
+    data = torch.from_numpy(raw).cuda()
+    del x, w, raw
+    arc, _ = port.float_compress_padded(words, n, bf16, 10, False)
+    arc_f32, _ = port.float_compress_padded(words_f32, n, f32, 10, False)
+    arc_raw, _ = port.ans_encode_padded(data, L, 10, False)
 
     calls = {
-        "compress": lambda: port.float_compress_padded(words, n, ft, 10, False),
+        "compress": lambda: port.float_compress_padded(words, n, bf16, 10, False),
         "decompress": lambda: port.float_decompress_padded(
-            arc, ft, Lw, 10, False, static_length=n),
+            arc, bf16, Lw, 10, False, static_length=n),
+        "f32 compress": lambda: port.float_compress_padded(words_f32, n, f32, 10, False),
+        "f32 decompress": lambda: port.float_decompress_padded(
+            arc_f32, f32, Lw, 10, False, static_length=n),
+        "raw encode": lambda: port.ans_encode_padded(data, L, 10, False),
+        "raw decode": lambda: port.ans_decode_padded(arc_raw, 10, L, False),
     }
     report = {"card": card, "n_words": n}
     for name, fn in calls.items():
