@@ -3,17 +3,20 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # the full check, about a minute
+    python3 chip_smoke.py            # the full check, about two minutes
 
 Phases; any failure raises, so the script exits non-zero and prints no
 result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
                nvcc for sm_90a, all in parallel, into ``build/``;
-2. kernels  -- each of the eight kernels against its plain torch version on
-               the card, bit-exact (tolerance 0: the codec is lossless and
-               the archive format fixed), at small and ragged shapes, with
-               a lying header and a corrupted payload for each decode;
+2. kernels  -- each of the sixteen kernels (eight single-tensor, eight
+               batched) against its plain torch version on the card,
+               bit-exact (tolerance 0: the codec is lossless and the
+               archive format fixed), at small and ragged shapes: for the
+               batched ones B = 1, members of one block and ragged raw
+               lengths; with a lying header and a corrupted payload for
+               each decode (in one member of a batch: only it may fail);
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -30,7 +33,21 @@ result line:
                bytes as benchmarks/sweep.py makes them, through
                ans_encode_padded (its own histogram) / ans_decode_padded,
                with the same checks and one checksummed call;
-4. timing   -- CUDA events: compress and decompress GB/s of each path, each
+   path D   -- bf16 batch, 128 members of 512Ki words (128 MiB), prob_bits
+               10, no checksum, one static length (benchmarks/sweep.py's
+               batched scenario), through float_compress_batched /
+               float_decompress_batched: each batched kernel launched
+               exactly once per call, every member round-trips exactly, its
+               archive equals the batched plain pipeline's on the card and
+               the single-tensor kernel path's, one checksummed call;
+   path E   -- the same for an f32 batch of 128 x 512Ki words (256 MiB);
+   path F   -- raw ANS batch, 64 members of ragged lengths drawn in
+               [1 MiB, 4 MiB], capacity 4 MiB each, exponential bytes,
+               through ans_encode_batched (its own histograms) /
+               ans_decode_batched, with the same checks at prob_bits 10
+               and exactness at 9 and 11;
+4. timing   -- CUDA events: compress and decompress GB/s of each path (for
+               D-F also the same batch as B single-tensor calls), each
                kernel's ms beside its bound and its plain version's ms
                (and, for the histogram, torch.bincount's), and a measured
                copy_ of path A's bytes.
@@ -52,6 +69,10 @@ from pathlib import Path
 
 MWORDS = 128  # paths A and B, Mi words (bench.py's size)
 RAW_BYTES = 1 << 28  # path C, the bytes of path A's input
+BATCH = 128  # paths D and E, members (the reference's 128-way batch)
+MEMBER_WORDS = 1 << 19  # paths D and E, words per member
+RAW_MEMBERS = 64  # path F, members (BASELINE.json config 2)
+RAW_CAP = 1 << 22  # path F, bytes of capacity per member; lengths in [CAP/4, CAP]
 ITERS = 20  # timed iterations per measurement
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # 32-bit non-tensor peak (fp32 rate; int32 is not faster)
@@ -91,13 +112,50 @@ KERNELS = {
         "dietgpu_tpu_torch/csrc/decode.cu",
         "dietgpu_tpu/ans/pallas_decode.py:121", 16, "B",
     ),
+    "split_batched": (
+        "dietgpu_tpu_torch/csrc/split.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "D",
+    ),
+    "encode_batched": (
+        "dietgpu_tpu_torch/csrc/encode.cu",
+        "dietgpu_tpu/ans/pallas_encode.py:278", 16, "D",
+    ),
+    "assembly_batched": (
+        "dietgpu_tpu_torch/csrc/assembly.cu",
+        "dietgpu_tpu/ans/pallas_encode.py:726", 0, "D",
+    ),
+    "decode_batched": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "D",
+    ),
+    "split_f32_batched": (
+        "dietgpu_tpu_torch/csrc/split_f32.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "E",
+    ),
+    "decode_f32_batched": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "E",
+    ),
+    "hist_batched": (
+        "dietgpu_tpu_torch/csrc/hist.cu",
+        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "F",
+    ),
+    "decode_raw_batched": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "F",
+    ),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
     "A": ("split", "encode", "assembly", "decode"),
     "B": ("split_f32", "encode", "assembly", "decode_f32"),
     "C": ("hist", "encode", "assembly", "decode_raw"),
+    "D": ("split_batched", "encode_batched", "assembly_batched", "decode_batched"),
+    "E": ("split_f32_batched", "encode_batched", "assembly_batched", "decode_f32_batched"),
+    "F": ("hist_batched", "encode_batched", "assembly_batched", "decode_raw_batched"),
 }
+# paths whose one compress and one decompress must launch each kernel once
+BATCHED_PATHS = ("D", "E", "F")
 
 
 def log(msg):
@@ -171,10 +229,21 @@ def drive(port, name, fn):
     out = fn()
     torch.cuda.synchronize()
     launches = port.kernel_launches()
-    log(f"  launches on path {name}: {launches}")
+    log(f"  launches on path {name}: { {k: v for k, v in launches.items() if v} }")
     for k in PATH_KERNELS[name]:
         require(launches[k] >= 1, f"kernel {k} was not launched on path {name}")
+        if name in BATCHED_PATHS:
+            require(launches[k] == 1, f"batched kernel {k} launched {launches[k]} times in one call")
     return out, launches
+
+
+def member_pairs(arcs, sizes, parcs, psizes):
+    """(sizes, plain sizes) and each member's archive bytes [0, size) beside
+    the other pipeline's, for require_exact."""
+    pairs = [(sizes, psizes)]
+    for m, s in enumerate(sizes.tolist()):
+        pairs.append((arcs[m, : (s & 0x7FFFFFFF) // 4], parcs[m, : (s & 0x7FFFFFFF) // 4]))
+    return pairs
 
 
 def phase2_new_kernels(port, dev):
@@ -280,6 +349,336 @@ def phase2_new_kernels(port, dev):
     log("  raw: lying header fails success; corrupted payload fails checksum_ok")
 
 
+def phase2_batched_kernels(port, dev):
+    """The eight batched kernels against their plain versions at small and
+    ragged batches: B = 1, members of one block, ragged raw lengths, a
+    lying header in one member and a corrupted payload in another."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, cuda_hist
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    F16, BF16, F32 = C.FLOAT_TYPE_FLOAT16, C.FLOAT_TYPE_BFLOAT16, C.FLOAT_TYPE_FLOAT32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Lw = 1 << 16
+    pairs = torch.randint(-(1 << 31), 1 << 31, (3, Lw // 2), dtype=torch.int32, device=dev,
+                          generator=gen)
+    words = torch.randint(-(1 << 31), 1 << 31, (3, Lw), dtype=torch.int32, device=dev,
+                          generator=gen)
+    for B in (1, 3):
+        for n in (Lw, Lw - 12345, 17):
+            for ck in (False, True):
+                for ft in (F16, BF16):
+                    require_exact(
+                        f"split_batched B={B} ft={ft} n={n} ck={ck}",
+                        zip(cuda_float.split_words_batched_cuda(pairs[:B], n, ft, ck),
+                            cuda_float.split_words_batched_plain(pairs[:B], n, ft, ck)),
+                    )
+                require_exact(
+                    f"split_f32_batched B={B} n={n} ck={ck}",
+                    zip(cuda_float.split_words_f32_batched_cuda(words[:B], n, ck),
+                        cuda_float.split_words_f32_batched_plain(words[:B], n, ck)),
+                )
+    lengths = [4 * Lw, 4 * Lw - 3, 4097, 1, 0]
+    data = torch.randint(-(1 << 31), 1 << 31, (5, Lw), dtype=torch.int32, device=dev,
+                         generator=gen)
+    for ck in (False, True):
+        require_exact(
+            f"hist_batched lengths={lengths} ck={ck}",
+            zip(cuda_hist.histogram_u8_batched_cuda(data, lengths, ck),
+                cuda_hist.histogram_u8_batched_plain(data, lengths, ck)),
+        )
+
+    # float batches: the encode and assembly kernels through the batched
+    # compress, the decode kernels beside their plain versions
+    x = torch.randn((3, Lw), generator=gen, device=dev)
+    x = x * torch.arange(1, 4, device=dev)[:, None] ** 3  # a table per member
+    as_words = {
+        F16: x.half().view(torch.int16), BF16: (x.view(torch.int32) >> 16).to(torch.int16),
+        F32: x.view(torch.int32),
+    }
+    for ft, w in as_words.items():
+        for B, lw, n in ((1, Lw, Lw), (3, Lw, Lw - 777), (3, C.DEFAULT_BLOCK_SIZE, 17)):
+            wb = w[:B, :lw].contiguous()
+            for pb in C.SUPPORTED_PROB_BITS if ft == BF16 else (10,):
+                for ck in (False, True):
+                    what = f"ft={ft} B={B} Lw={lw} n={n} pb={pb} ck={ck}"
+                    ka, ks = codec.float_compress_batched(wb, n, ft, pb, ck)
+                    pa, ps = codec.float_compress_batched_plain(wb, n, ft, pb, ck)
+                    require_exact(f"encode_batched+assembly_batched {what}",
+                                  member_pairs(ka, ks, pa, ps))
+                    single = [codec.float_compress_padded(wb[m], n, ft, pb, ck) for m in range(B)]
+                    require_exact(f"  the same members through the single path {what}",
+                                  member_pairs(ka, ks, torch.stack([a for a, _ in single]),
+                                               torch.stack([s for _, s in single])))
+                    for digest in (False, True):
+                        require_exact(
+                            f"decode{'_f32' if ft == F32 else ''}_batched {what} digest={digest}",
+                            zip(cuda_decode.decode_float_batched_cuda(ka, ft, lw, pb, n, digest),
+                                cuda_decode.decode_float_batched_plain(ka, ft, lw, pb, n, digest)),
+                        )
+                    r = codec.float_decompress_batched(ka, ft, lw, pb, ck, static_length=n)
+                    require(bool(r["success"].all()) and bool(r["checksum_ok"].all()),
+                            f"batched float roundtrip status {what}")
+                    out = r["out32"].view(wb.dtype)
+                    require(torch.equal(out[:, :n], wb[:, :n]) and not out[:, n:].any(),
+                            f"batched float roundtrip differs {what}")
+        # ka: B = 3 members of 17 words with a checksum; re-made at Lw - 777
+        wb = w.contiguous()
+        ka, _ = codec.float_compress_batched(wb, Lw - 777, ft, 10, True)
+        bad = ka.clone()
+        bad[1, 1] += 4096
+        for fn in (cuda_decode.decode_float_batched_cuda, cuda_decode.decode_float_batched_plain):
+            require(fn(bad, ft, Lw, 10)[1].tolist() == [True, False, True],
+                    f"a lying header in member 1 (ft={ft}) failed another member")
+        bad = ka.clone()
+        bad[2, 4 + 100] ^= 0x01000000  # a raw-plane byte of member 2
+        r = codec.float_decompress_batched(bad, ft, Lw, 10, True)
+        require(bool(r["success"].all()) and r["checksum_ok"].tolist() == [True, True, False],
+                f"a corrupted plane byte of member 2 (ft={ft}) was not caught in it alone")
+        require(torch.equal(r["out32"].view(wb.dtype)[:2, : Lw - 777], wb[:2, : Lw - 777]),
+                f"members beside a corrupted one (ft={ft}) differ")
+    log("  float batches: a lying header or a corrupted plane fails only its member")
+
+    # raw batches: ragged lengths, a member of one byte (one block), B = 1
+    L = 1 << 16
+    rng = np.random.default_rng(4)
+    lengths = [L, 1, L - 4097, 5000]
+    d = np.minimum(rng.exponential(30, (4, L)), 255).astype(np.uint8)
+    for m, n in enumerate(lengths):
+        d[m, n:] = 0
+    d = torch.from_numpy(d).to(dev)
+    for lens in ([L - 4097], lengths):
+        db = d[2:3] if len(lens) == 1 else d
+        for pb in C.SUPPORTED_PROB_BITS:
+            for ck in (False, True):
+                what = f"lengths={lens} pb={pb} ck={ck}"
+                ka, ks = port.ans_encode_batched(db, lens, None, pb, ck)
+                pa, ps = cuda_encode.ans_encode_batched_plain(db, lens, None, pb, ck)
+                require_exact(f"hist_batched+encode_batched+assembly_batched {what}",
+                              member_pairs(ka, ks, pa, ps))
+                single = [port.ans_encode_padded(db[m], n, pb, ck) for m, n in enumerate(lens)]
+                require_exact(f"  the same members through the single path {what}",
+                              member_pairs(ka, ks, torch.stack([a for a, _ in single]),
+                                           torch.stack([s for _, s in single])))
+                for digest in (False, True):
+                    require_exact(
+                        f"decode_raw_batched {what} digest={digest}",
+                        zip(cuda_decode.decode_raw_batched_cuda(ka, pb, L, None, digest),
+                            cuda_decode.decode_raw_batched_plain(ka, pb, L, None, digest)),
+                    )
+                r = port.ans_decode_batched(ka, pb, L, verify_checksum=ck)
+                require(bool(r["success"].all()) and bool(r["checksum_ok"].all())
+                        and torch.equal(r["out"], db), f"raw batched roundtrip {what}")
+    # ka: the four members with a checksum at pb 11
+    bad = ka.clone()
+    bad[0, 2] = L + 1
+    for fn in (cuda_decode.decode_raw_batched_cuda, cuda_decode.decode_raw_batched_plain):
+        require(fn(bad, pb, L)[1].tolist() == [False, True, True, True],
+                "a lying raw header in member 0 failed another member")
+    # a block count past member 1's row: success as the format defines it,
+    # the same for the kernel and the plain version, and no fault; the
+    # neighbours decode exactly
+    bad = ka.clone()
+    bad[1, 1] = 0xFFFF
+    got = cuda_decode.decode_raw_batched_cuda(bad, pb, L)
+    torch.cuda.synchronize()
+    require(torch.equal(got[1], cuda_decode.decode_raw_batched_plain(bad, pb, L)[1]),
+            "a lying raw block count changed success")
+    out = got[0].view(torch.uint8)
+    require(torch.equal(out[[0, 2, 3]], d[[0, 2, 3]]), "members beside a lying one differ")
+    bad = ka.clone()
+    bad[3, 136 + 5] ^= 0x10  # a lane's final state of member 3
+    r = port.ans_decode_batched(bad, pb, L, verify_checksum=True)
+    require(bool(r["success"].all()) and r["checksum_ok"].tolist() == [True, True, True, False],
+            "a corrupted payload of member 3 was not caught in it alone")
+    log("  raw batches: a lying header or a corrupted payload fails only its member")
+
+
+def float_batch_path(port, name, ft, words, err):
+    """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
+    through float_compress_batched / float_decompress_batched. Fills err
+    with the path's kernels' errors against their plain versions at these
+    shapes; returns what phase 4 times."""
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, stats
+    from dietgpu_tpu_torch.ans import encode as plain_encode
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    B = words.shape[0]
+    n = Lw = MEMBER_WORDS
+    f32 = ft == C.FLOAT_TYPE_FLOAT32
+    want = words.view(torch.int32)
+
+    def run():
+        a, s = port.float_compress_batched(words, n, ft, 10, False)
+        return a, s, port.float_decompress_batched(a, ft, Lw, 10, False, static_length=n)
+
+    (arcs, sizes, res), launches = drive(port, name, run)
+    require(bool(res["success"].all()) and bool((res["size"] == n).all()),
+            f"path {name} decode failed its status")
+    require(torch.equal(res["out32"], want), f"path {name} roundtrip differs")
+    log(f"  roundtrip exact for all {B} members")
+    pa, ps = codec.float_compress_batched_plain(words, n, ft, 10, False)
+    require_exact(f"path {name} archives vs the batched plain pipeline",
+                  member_pairs(arcs, sizes, pa, ps))
+    del pa, ps
+    single = [codec.float_compress_padded(words[m], n, ft, 10, False) for m in range(B)]
+    require_exact(f"path {name} archives vs {B} single-tensor kernel calls",
+                  member_pairs(arcs, sizes, torch.stack([a for a, _ in single]),
+                               torch.stack([s for _, s in single])))
+    a2, _ = port.float_compress_batched(words, n, ft, 10, True)
+    r2 = port.float_decompress_batched(a2, ft, Lw, 10, True, static_length=n)
+    require(bool(r2["success"].all()) and bool(r2["checksum_ok"].all())
+            and torch.equal(r2["out32"], want), f"path {name} checksummed call failed")
+    log("  checksummed call: roundtrip exact, checksum verified on decode")
+    del a2, r2
+
+    split_k = "split_f32_batched" if f32 else "split_batched"
+    split_cuda = cuda_float.split_words_f32_batched_cuda if f32 else cuda_float.split_words_batched_cuda
+    split_plain = (cuda_float.split_words_f32_batched_plain if f32
+                   else cuda_float.split_words_batched_plain)
+    split_args = (words, n) if f32 else (words, n, ft)
+    ks = split_cuda(*split_args)
+    err[split_k] = require_exact(f"{split_k}, path {name} shape",
+                                 zip(ks, split_plain(*split_args)))
+    dec_k = "decode_f32_batched" if f32 else "decode_batched"
+    e = 0
+    for digest in (False, True):
+        e = max(e, require_exact(
+            f"{dec_k} digest={digest}, path {name} shape",
+            zip(cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n, digest),
+                cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n, digest)),
+        ))
+    err[dec_k] = e
+    state = {
+        "arcs": arcs, "sizes": sizes, "launches": launches, "single": [a for a, _ in single],
+        "split": (lambda: split_cuda(*split_args), lambda: split_plain(*split_args)),
+        "decode": (lambda: cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n),
+                   lambda: cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n)),
+    }
+    if not f32:
+        # the encode and assembly kernels at path D's shapes
+        exp32 = ks[0]
+        pdfs = stats.normalize_probs(ks[2], n, 10)
+        tables = plain_encode.encode_table(pdfs)
+        lengths_t = torch.full((B,), n, dtype=torch.int64, device=words.device)
+        ke = cuda_encode.encode_blocks_batched_cuda(exp32, lengths_t, 10, tables)
+        pe = plain_encode.encode_blocks_batched(exp32, lengths_t, 10, tables)
+        err["encode_batched"] = require_exact(
+            f"encode_batched, path {name} shape",
+            [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1]))
+        del pe
+        base32 = 4 + C.round_up(n, 16) // 4
+        asm_k = torch.zeros_like(arcs)
+        prefix, _, ds32_t, _ = plain_encode.write_sections_batched(
+            asm_k, base32, pdfs, ke[2], ke[1], [n] * B, 10)
+        asm_p = asm_k.clone()
+        cuda_encode.assemble_payload_batched_cuda(asm_k, ds32_t, ke[0], ke[1], prefix)
+        plain_encode.assemble_payload_batched(asm_p, ds32_t, ke[0], ke[1], prefix)
+        err["assembly_batched"] = require_exact(f"assembly_batched, path {name} shape",
+                                                [(asm_k, asm_p)])
+        del asm_p
+        counts = ke[1].long()
+        state["encode"] = (
+            lambda: cuda_encode.encode_blocks_batched_cuda(exp32, lengths_t, 10, tables),
+            lambda: plain_encode.encode_blocks_batched(exp32, lengths_t, 10, tables))
+        state["assembly"] = (
+            lambda: cuda_encode.assemble_payload_batched_cuda(asm_k, ds32_t, ke[0], ke[1], prefix),
+            lambda: plain_encode.assemble_payload_batched(asm_k, ds32_t, ke[0], ke[1], prefix))
+        state["emitted"] = int(counts.sum())
+        state["padded_words"] = int(((counts + 7) // 8 * 8).clamp(max=2560).sum())
+    torch.cuda.empty_cache()
+    return state
+
+
+def raw_batch_path(port, data, lengths, err):
+    """Path F: RAW_MEMBERS members of ragged lengths through
+    ans_encode_batched / ans_decode_batched. Fills err for hist_batched and
+    decode_raw_batched; returns what phase 4 times."""
+    import torch
+
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_encode, cuda_hist
+
+    B, L = data.shape
+
+    def run():
+        a, s = port.ans_encode_batched(data, lengths, None, 10, False)
+        return a, s, port.ans_decode_batched(a, 10, L)
+
+    (arcs, sizes, res), launches = drive(port, "F", run)
+    require(bool(res["success"].all()) and res["size"].tolist() == lengths,
+            "path F decode failed its status")
+    require(torch.equal(res["out"], data), "path F roundtrip differs")
+    log(f"  roundtrip exact for all {B} members")
+    for pb in (10, 9, 11):
+        if pb == 10:
+            a, s = arcs, sizes
+        else:
+            a, s = port.ans_encode_batched(data, lengths, None, pb, False)
+            r = port.ans_decode_batched(a, pb, L)
+            require(bool(r["success"].all()) and torch.equal(r["out"], data),
+                    f"path F roundtrip differs at pb {pb}")
+        pa, ps = cuda_encode.ans_encode_batched_plain(data, lengths, None, pb, False)
+        require_exact(f"path F archives vs the batched plain pipeline, pb {pb}",
+                      member_pairs(a, s, pa, ps))
+        del pa, ps
+    single = [port.ans_encode_padded(data[m], n, 10, False) for m, n in enumerate(lengths)]
+    require_exact(f"path F archives vs {B} single-tensor kernel calls",
+                  member_pairs(arcs, sizes, torch.stack([a for a, _ in single]),
+                               torch.stack([s for _, s in single])))
+    a2, _ = port.ans_encode_batched(data, lengths, None, 10, True)
+    r2 = port.ans_decode_batched(a2, 10, L, verify_checksum=True)
+    require(bool(r2["success"].all()) and bool(r2["checksum_ok"].all())
+            and torch.equal(r2["out"], data), "path F checksummed call failed")
+    log("  checksummed call: roundtrip exact, checksum verified on decode")
+    del a2, r2
+    d32 = data.view(torch.int32)
+    err["hist_batched"] = require_exact(
+        "hist_batched ck=True, path F shape",
+        zip(cuda_hist.histogram_u8_batched_cuda(d32, lengths, True),
+            cuda_hist.histogram_u8_batched_plain(d32, lengths, True)))
+    e = 0
+    for digest in (False, True):
+        e = max(e, require_exact(
+            f"decode_raw_batched digest={digest}, path F shape",
+            zip(cuda_decode.decode_raw_batched_cuda(arcs, 10, L, None, digest),
+                cuda_decode.decode_raw_batched_plain(arcs, 10, L, None, digest))))
+    err["decode_raw_batched"] = e
+    torch.cuda.empty_cache()
+    return {
+        "arcs": arcs, "sizes": sizes, "launches": launches, "single": [a for a, _ in single],
+        "hist": (lambda: cuda_hist.histogram_u8_batched_cuda(d32, lengths),
+                 lambda: cuda_hist.histogram_u8_batched_plain(d32, lengths)),
+        "decode": (lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, L),
+                   lambda: cuda_decode.decode_raw_batched_plain(arcs, 10, L)),
+    }
+
+
+def batch_inputs(dev):
+    """Paths D and E's words (standard normal f32 from default_rng(0), and
+    the same truncated to bf16), and path F's bytes and lengths."""
+    import numpy as np
+    import torch
+
+    x = np.random.default_rng(0).standard_normal((BATCH, MEMBER_WORDS)).astype(np.float32)
+    words_e = torch.from_numpy(x.view(np.int32)).to(dev)
+    words_d = (words_e >> 16).to(torch.int16).view(torch.int32)  # (B, Lw/2) word pairs
+    del x
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(RAW_CAP // 4, RAW_CAP + 1, RAW_MEMBERS).tolist()
+    data = torch.empty((RAW_MEMBERS, RAW_CAP), dtype=torch.uint8, device=dev)
+    for m, n in enumerate(lengths):  # as benchmarks/sweep.py:118, one member at a time
+        row = np.minimum(rng.exponential(30, RAW_CAP), 255).astype(np.uint8)
+        row[n:] = 0
+        data[m] = torch.from_numpy(row)
+    return words_d, words_e, data, lengths
+
+
 def main():
     import numpy as np
     import torch
@@ -368,6 +767,7 @@ def main():
                   [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1].clamp(max=2560)))
 
     phase2_new_kernels(port, dev)
+    phase2_batched_kernels(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 
@@ -549,9 +949,22 @@ def main():
         ))
     err["decode_raw"] = e6
     torch.cuda.empty_cache()
+
+    # ---- 3. paths D, E, F: the batched paths ----
+    words_d, words_e, data_f, lengths_f = batch_inputs(dev)
+    log(f"# phase 3: path D, bf16 batch of {BATCH} x {MEMBER_WORDS} words, prob_bits 10")
+    bat = {"D": float_batch_path(port, "D", ft, words_d, err)}
+    log(f"# phase 3: path E, f32 batch of {BATCH} x {MEMBER_WORDS} words, prob_bits 10")
+    bat["E"] = float_batch_path(port, "E", F32, words_e, err)
+    log(f"# phase 3: path F, raw ANS batch of {RAW_MEMBERS} members, "
+        f"{sum(lengths_f)} bytes in [{RAW_CAP // 4}, {RAW_CAP}] each, prob_bits 10")
+    bat["F"] = raw_batch_path(port, data_f, lengths_f, err)
+
     launches = {}
+    path_launches = {"A": launches_a, "B": launches_b, "C": launches_c,
+                     **{p: st["launches"] for p, st in bat.items()}}
     for k, (_, _, _, path) in KERNELS.items():
-        launches[k] = {"A": launches_a, "B": launches_b, "C": launches_c}[path][k]
+        launches[k] = path_launches[path][k]
 
     # ---- 4. timing ----
     log(f"# phase 4: timing, {ITERS} iterations, CUDA events; card: {card}")
@@ -615,6 +1028,42 @@ def main():
     log(f"  path C decode     {L / t_dec_c / 1e6:10.3f} GB/s  ({t_dec_c:.4f} ms; "
         f"bytes bound {bound_c:.4f} ms)")
 
+    # the batched paths, beside the same batch done as B single-tensor calls
+    Lm = MEMBER_WORDS
+    batch_calls = {
+        "D": (lambda: port.float_compress_batched(words_d, Lm, ft, 10, False),
+              lambda: port.float_decompress_batched(bat["D"]["arcs"], ft, Lm, 10, False,
+                                                    static_length=Lm),
+              lambda: [port.float_compress_padded(w, Lm, ft, 10, False) for w in words_d],
+              lambda: [port.float_decompress_padded(a, ft, Lm, 10, False, static_length=Lm)
+                       for a in bat["D"]["single"]],
+              BATCH * Lm * 2),
+        "E": (lambda: port.float_compress_batched(words_e, Lm, F32, 10, False),
+              lambda: port.float_decompress_batched(bat["E"]["arcs"], F32, Lm, 10, False,
+                                                    static_length=Lm),
+              lambda: [port.float_compress_padded(w, Lm, F32, 10, False) for w in words_e],
+              lambda: [port.float_decompress_padded(a, F32, Lm, 10, False, static_length=Lm)
+                       for a in bat["E"]["single"]],
+              BATCH * Lm * 4),
+        "F": (lambda: port.ans_encode_batched(data_f, lengths_f, None, 10, False),
+              lambda: port.ans_decode_batched(bat["F"]["arcs"], 10, RAW_CAP),
+              lambda: [port.ans_encode_padded(d, m, 10, False) for d, m in zip(data_f, lengths_f)],
+              lambda: [port.ans_decode_padded(a, 10, RAW_CAP, False) for a in bat["F"]["single"]],
+              sum(lengths_f)),
+    }
+    for p, (comp, dec, comp1, dec1, raw) in batch_calls.items():
+        t_c, t_d = time_ms(comp, ITERS), time_ms(dec, ITERS)
+        t_c1, t_d1 = time_ms(comp1, 3, warmup=1), time_ms(dec1, 3, warmup=1)
+        arc_bytes = int((bat[p]["sizes"] & 0x7FFFFFFF).sum())
+        bound = (raw + arc_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"  path {p} batched compress   {raw / t_c / 1e6:10.3f} GB/s  ({t_c:.4f} ms; "
+            f"bytes bound {bound:.4f} ms; ratio {arc_bytes / raw:.6f})")
+        log(f"  path {p} batched decompress {raw / t_d / 1e6:10.3f} GB/s  ({t_d:.4f} ms; "
+            f"bytes bound {bound:.4f} ms)")
+        log(f"  path {p} as single calls: compress {raw / t_c1 / 1e6:10.3f} GB/s "
+            f"({t_c1:.4f} ms), decompress {raw / t_d1 / 1e6:10.3f} GB/s ({t_d1:.4f} ms)")
+        torch.cuda.empty_cache()
+
     counts = ke[1].long()
     emitted = int(counts.sum())
     padded_words = int(((counts + 7) // 8 * 8).clamp(max=2560).sum())
@@ -628,6 +1077,17 @@ def main():
         "decode_raw": (size_c + L, L),
         "split_f32": (8 * Lw + 4 * 256, Lw),
         "decode_f32": (size_b + 4 * Lw, n),
+        # the batched kernels at paths D, E and F's shapes
+        "split_batched": (BATCH * (4 * Lm + 4 * 256), BATCH * Lm),
+        "encode_batched": (BATCH * (Lm + 2048 + 132 * (Lm // 4096)) + 2 * bat["D"]["emitted"],
+                           BATCH * Lm),
+        "assembly_batched": (4 * bat["D"]["padded_words"] + 8 * BATCH * (Lm // 4096 + 1), 0),
+        "decode_batched": (int(bat["D"]["sizes"].sum()) + 2 * BATCH * Lm, BATCH * Lm),
+        "split_f32_batched": (BATCH * (8 * Lm + 4 * 256), BATCH * Lm),
+        "decode_f32_batched": (int(bat["E"]["sizes"].sum()) + 4 * BATCH * Lm, BATCH * Lm),
+        "hist_batched": (sum(lengths_f) + RAW_MEMBERS * (8 + 4 * 256), sum(lengths_f)),
+        "decode_raw_batched": (int(bat["F"]["sizes"].sum()) + RAW_MEMBERS * RAW_CAP,
+                               sum(lengths_f)),
     }
     wb = inputs_b[0]
     runs = {
@@ -647,6 +1107,14 @@ def main():
                       lambda: cuda_float.split_words_f32_plain(wb, n)),
         "decode_f32": (lambda: cuda_decode.decode_float_cuda(arc_b, F32, Lw, 10, n),
                        lambda: cuda_decode.decode_float_plain(arc_b, F32, Lw, 10, n)),
+        "split_batched": bat["D"]["split"],
+        "encode_batched": bat["D"]["encode"],
+        "assembly_batched": bat["D"]["assembly"],
+        "decode_batched": bat["D"]["decode"],
+        "split_f32_batched": bat["E"]["split"],
+        "decode_f32_batched": bat["E"]["decode"],
+        "hist_batched": bat["F"]["hist"],
+        "decode_raw_batched": bat["F"]["decode"],
     }
     # one torch call computing the same function, where there is one
     library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}
@@ -667,7 +1135,7 @@ def main():
             "library_ms": library_ms,
         })
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-        log(f"  {k:10s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
+        log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
 
     for m in list(sys.modules):

@@ -6,7 +6,9 @@ root of the checkout, named by the hash of its source, then loaded with
 ctypes. All sources are compiled in parallel, one ``nvcc`` each. Nothing is
 built when the package is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
-decode kernel), each with its own C entry point.
+decode kernel), each with its own C entry point; each source also has a
+batched entry point per kernel (``*_batched``), one launch for a whole
+batch of members, counted under its own name.
 
 Every wrapper launches through :func:`launch`, which checks the returned
 ``cudaGetLastError()`` and counts the launch under the kernel's name;
@@ -35,23 +37,46 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
-# kernel (one launch counter each) -> (source, C entry point, argument types)
+# kernel (one launch counter each) -> (source, C entry point, argument types
+# before the stream, which every entry point takes last)
 _ENTRY = {
-    "split": ("split", "dtt_split", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
+    "split": ("split", "dtt_split", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP)),
     "split_f32": (
-        "split_f32", "dtt_split_f32",
-        (_VP, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP),
+        "split_f32", "dtt_split_f32", (_VP, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP),
     ),
-    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _VP, _VP, _VP)),
-    "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _VP)),
-    "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _VP, _LL, _VP)),
-    "decode": (
-        "decode", "dtt_decode", (_VP, _LL, _VP, _INT, _INT, _INT, _LL, _INT, _VP, _VP)
+    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _VP, _VP)),
+    "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP)),
+    "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _VP, _LL)),
+    "decode": ("decode", "dtt_decode", (_VP, _LL, _VP, _INT, _INT, _INT, _LL, _INT, _VP)),
+    "decode_f32": ("decode", "dtt_decode_f32", (_VP, _LL, _VP, _INT, _INT, _LL, _INT, _VP)),
+    "decode_raw": ("decode", "dtt_decode_raw", (_VP, _LL, _VP, _INT, _INT, _INT, _VP)),
+    # the batched launches: one per call, whatever the batch size
+    "split_batched": (
+        "split", "dtt_split_batched",
+        (_VP, _LL, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
-    "decode_f32": (
-        "decode", "dtt_decode_f32", (_VP, _LL, _VP, _INT, _INT, _LL, _INT, _VP, _VP)
+    "split_f32_batched": (
+        "split_f32", "dtt_split_f32_batched",
+        (_VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _LL, _LL, _LL),
     ),
-    "decode_raw": ("decode", "dtt_decode_raw", (_VP, _LL, _VP, _INT, _INT, _INT, _VP, _VP)),
+    "hist_batched": ("hist", "dtt_hist_batched", (_VP, _LL, _LL, _VP, _VP, _VP, _LL)),
+    "encode_batched": (
+        "encode", "dtt_encode_batched", (_VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)
+    ),
+    "assembly_batched": (
+        "assembly", "dtt_assemble_batched", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _VP)
+    ),
+    "decode_batched": (
+        "decode", "dtt_decode_batched",
+        (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP),
+    ),
+    "decode_f32_batched": (
+        "decode", "dtt_decode_f32_batched",
+        (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP),
+    ),
+    "decode_raw_batched": (
+        "decode", "dtt_decode_raw_batched", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP)
+    ),
 }
 KERNELS = tuple(_ENTRY)
 
@@ -116,7 +141,7 @@ def _entry(name: str):
             build_all()
             source, sym, argtypes = _ENTRY[name]
             fn = getattr(ctypes.CDLL(str(_lib_path(source))), sym)
-            fn.argtypes = argtypes
+            fn.argtypes = (*argtypes, _VP)
             fn.restype = ctypes.c_int
             _entries[name] = fn
         return fn
@@ -124,8 +149,11 @@ def _entry(name: str):
 
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream; raise if it was refused."""
-    args = args + (torch.cuda.current_stream().cuda_stream,)
-    rc = _entry(name)(*args)
+    fn = _entry(name)
+    # ctypes passes arguments past argtypes unchecked, as C ints
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"kernel '{name}' takes {len(fn.argtypes) - 1} arguments, got {len(args)}")
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {rc}")
     _launches[name] += 1

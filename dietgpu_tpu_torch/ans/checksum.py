@@ -20,13 +20,16 @@ def _fold8(x: torch.Tensor) -> torch.Tensor:
 
 
 def xor_reduce(w: torch.Tensor) -> torch.Tensor:
-    """XOR of all elements of an integer tensor (0-dim int64, low 32 bits)."""
-    w = layout.to_u32(w.reshape(-1))
-    while w.shape[0] > 1:
-        if w.shape[0] & 1:
-            w = torch.cat([w, w.new_zeros(1)])
-        w = w[0::2] ^ w[1::2]
-    return w.sum() if w.shape[0] else torch.zeros((), dtype=torch.int64, device=w.device)
+    """XOR of the elements of an integer tensor along its last dim (int64,
+    low 32 bits; 0-dim for a 1-D tensor)."""
+    w = layout.to_u32(w)
+    while w.shape[-1] > 1:
+        if w.shape[-1] & 1:
+            w = torch.cat([w, w.new_zeros(*w.shape[:-1], 1)], -1)
+        w = w[..., 0::2] ^ w[..., 1::2]
+    if w.shape[-1]:
+        return w[..., 0]
+    return torch.zeros(w.shape[:-1], dtype=torch.int64, device=w.device)
 
 
 def checksum_u32(words: torch.Tensor, length_bytes: int) -> torch.Tensor:
@@ -51,3 +54,13 @@ def checksum_u8(data: torch.Tensor, length: int) -> torch.Tensor:
     if n % 4:
         data = torch.cat([data, data.new_zeros((-n) % 4)])
     return checksum_u32(layout.u8_to_u32le(data), min(int(length), n))
+
+
+def checksum_rows(data: torch.Tensor, lengths) -> torch.Tensor:
+    """Checksum of each row's first lengths[m] bytes of (B, L) uint8, L % 4
+    == 0; `lengths` is B host ints, clamped to [0, L]. Returns (B,) int64."""
+    assert data.dtype == torch.uint8 and data.dim() == 2 and data.shape[1] % 4 == 0
+    n = torch.tensor(lengths, dtype=torch.int64, device=data.device)[:, None]
+    keep = torch.arange(data.shape[1], device=data.device)[None, :] < n
+    masked = torch.where(keep, data, torch.zeros((), dtype=torch.uint8, device=data.device))
+    return _fold8(xor_reduce(masked.view(torch.int32)))

@@ -11,12 +11,20 @@ Counterpart of ``dietgpu_tpu.ans.pallas_decode.ans_decode_padded_pallas``:
   raw-ANS entry point :func:`ans_decode_padded` (counterpart of
   ``dietgpu_tpu.backend.ans_decode_padded``).
 
+The ``*_batched_*`` forms decode B archives, rows of one (B, stride)
+buffer, with one launch: the per-member-table configurations of the decode
+kernel (counterpart of ``ans_decode_batched_pallas`` and of the fused
+decode inside ``float_decompress_batched_pallas``), and the raw-ANS entry
+point :func:`ans_decode_batched`. Member sizes may be ragged; each member's
+comes from its own header.
+
 The kernel parses the headers and builds the decode LUT on the device, so
 the decode needs no host round trip; the plain versions do the same in
 torch. A CUDA tensor goes through the kernel; a CPU tensor through the
 plain version.
 """
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -45,16 +53,21 @@ def _check(arc32, float_type, out_max_words, prob_bits):
         raise ValueError("decode: a float container has at least 4 words")
 
 
-def _section(arc32, off32, n32):
-    """arc32[off32 : off32 + n32], zero-filled past the buffer's end."""
-    s = arc32[off32 : off32 + n32]
-    return torch.cat([s, s.new_zeros(n32 - s.shape[0])])
+def _rows_section(arcs, off32, n32):
+    """arcs[m, off32[m] : off32[m] + n32] for each row (off32: B host ints),
+    zero-filled past the row's end."""
+    B, A32 = arcs.shape
+    idx = torch.from_numpy(np.asarray(off32, np.int64)).to(arcs.device)[:, None]
+    idx = idx + torch.arange(n32, device=arcs.device)
+    v = torch.gather(arcs, 1, idx.clamp(max=A32 - 1))
+    return torch.where(idx < A32, v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
 def _digest(out32, with_digest):
+    """Folded XOR of each row of out32 (or of the 1-D out32), or 0."""
     if with_digest:
         return checksum._fold8(checksum.xor_reduce(out32))
-    return torch.zeros((), dtype=torch.int64, device=out32.device)
+    return torch.zeros(out32.shape[:-1], dtype=torch.int64, device=out32.device)
 
 
 def decode_float_plain(
@@ -68,37 +81,51 @@ def decode_float_plain(
     f16/bf16 and (Lw,) int32 words for f32, zero past the word count.
     """
     _check(arc32, float_type, out_max_words, prob_bits)
-    Lw = out_max_words
-    dev = arc32.device
-    u = layout.to_u32(arc32)
-    h = u[:4].tolist()
-    n = layout.as_i32(h[1])
-    ok = h[0] == (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION
-    ok = ok and (h[2] & 0xF) == float_type and n <= Lw
+    out = _float_rows_plain(arc32[None], float_type, out_max_words, prob_bits,
+                            static_length, None, with_digest)
+    return tuple(x[0] for x in out)
+
+
+def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
+                      with_digest):
+    """:func:`decode_float_plain` of each row of `arcs` ((B, A32) int32),
+    with the batched path's `static_nb` (None for the single path)."""
+    B = arcs.shape[0]
+    dev = arcs.device
+    u = layout.to_u32(arcs)
+    h = u[:, :4].tolist()
+    n = np.array([layout.as_i32(r[1]) for r in h], np.int64)
+    ok = np.array(
+        [r[0] == (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION and (r[2] & 0xF) == float_type
+         for r in h]
+    ) & (n <= Lw)
     if static_length is not None:
-        ok = ok and n == min(static_length, Lw)
-    n_eff = min(max(n, 0), Lw)
+        ok &= n == min(static_length, Lw)
+    n_eff = np.clip(n, 0, Lw)
 
     f32 = float_type == C.FLOAT_TYPE_FLOAT32
-    hi_base = 4 + C.round_up(n_eff, 8) // 2
-    base = hi_base + C.round_up(n_eff, 16) // 4 if f32 else 4 + C.round_up(n_eff, 16) // 4
-    res = plain_decode.ans_decode_padded(arc32[base:], prob_bits, Lw)
-    ok = ok and bool(res["success"]) and layout.as_i32(int(res["size"])) == n_eff
+    hi_base = 4 + (n_eff + 7) // 8 * 4
+    base = hi_base + (n_eff + 15) // 16 * 4 if f32 else 4 + (n_eff + 15) // 16 * 4
+    res = plain_decode.decode_rows(u, prob_bits, Lw, base=base, static_nb=static_nb)
+    sizes = np.array([layout.as_i32(v) for v in res["size"].tolist()], np.int64)
+    ok &= res["success"].cpu().numpy() & (sizes == n_eff)
 
+    comp = res["out"]
     if f32:
-        lo = _section(arc32, 4, Lw // 2).view(torch.int16)
-        hi = layout.u32_to_u8le(_section(arc32, hi_base, Lw // 4))
-        words = split.join_words(res["out"], (lo, hi), float_type)
+        lo = _rows_section(arcs, [4] * B, Lw // 2).view(torch.int16)
+        hi = _rows_section(arcs, hi_base, Lw // 4).view(torch.uint8)
+        words = split.join_words(comp, (lo, hi), float_type)
     else:
-        nc = layout.u32_to_u8le(_section(arc32, 4, Lw // 4))
-        words = split.join_words(res["out"], (nc,), float_type)
-    valid = torch.arange(Lw, device=dev) < n_eff
+        nc = _rows_section(arcs, [4] * B, Lw // 4).view(torch.uint8)
+        words = split.join_words(comp, (nc,), float_type)
+    n_t = torch.from_numpy(n_eff).to(dev)[:, None]
+    valid = torch.arange(Lw, device=dev)[None, :] < n_t
     words = torch.where(valid, words, torch.zeros((), dtype=words.dtype, device=dev))
     out32 = words.view(torch.int32)
     return (
         out32,
-        torch.tensor(ok, device=dev),
-        torch.tensor(h[1], dtype=torch.int64, device=dev),
+        torch.from_numpy(ok).to(dev),
+        torch.tensor([r[1] for r in h], dtype=torch.int64, device=dev),
         _digest(out32, with_digest),
     )
 
@@ -199,6 +226,144 @@ def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
         checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
     return {
         "out": layout.u32_to_u8le(out32),
+        "size": size,
+        "success": success,
+        "checksum_ok": checksum_ok,
+    }
+
+
+# ---- batched: B archives, rows of one (B, stride) buffer, one launch ----
+
+
+def _check_batch(arcs, out_max, prob_bits):
+    if arcs.dtype != torch.int32 or arcs.dim() != 2 or arcs.shape[0] == 0:
+        raise ValueError("batched decode: the archives must be a (B, A/4) int32 tensor")
+    _check_archive(arcs[0], out_max, prob_bits)
+
+
+def _static_nb(static_length, out_max_words):
+    """The block count a static length fixes (as float_decompress_batched_pallas
+    passes static_nb), or None."""
+    if static_length is None:
+        return None
+    return C.div_up(min(static_length, out_max_words), C.DEFAULT_BLOCK_SIZE)
+
+
+def decode_float_batched_plain(
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+):
+    """Plain version of the per-member-table float decode: each row of
+    `arcs` ((B, F4) int32) decoded as :func:`decode_float_plain` decodes
+    one container, reading nothing past its row; with `static_length` the
+    block geometry comes from it and each member's block count must match.
+    Returns (out32 (B, Lw/2) or (B, Lw), success (B,), size (B,), digest
+    (B,))."""
+    _check_batch(arcs, out_max_words, prob_bits)
+    _check(arcs[0], float_type, out_max_words, prob_bits)
+    return _float_rows_plain(arcs, float_type, out_max_words, prob_bits, static_length,
+                             _static_nb(static_length, out_max_words), with_digest)
+
+
+def decode_float_batched_cuda(
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+):
+    """Launch the batched f16/bf16 or f32 configuration of
+    ``csrc/decode.cu``, one launch for all B rows; same contract as
+    :func:`decode_float_batched_plain`."""
+    _check_batch(arcs, out_max_words, prob_bits)
+    _check(arcs[0], float_type, out_max_words, prob_bits)
+    _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
+    B, F4 = arcs.shape
+    dev = arcs.device
+    f32 = float_type == C.FLOAT_TYPE_FLOAT32
+    out32 = torch.empty(
+        (B, out_max_words if f32 else out_max_words // 2), dtype=torch.int32, device=dev
+    )
+    status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    nb_cap = out_max_words // C.DEFAULT_BLOCK_SIZE
+    sl = -1 if static_length is None else static_length
+    snb = _static_nb(static_length, out_max_words)
+    snb = -1 if snb is None else snb
+    if f32:
+        _build.launch(
+            "decode_f32_batched", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
+            prob_bits, sl, snb, int(with_digest), status.data_ptr(),
+        )
+    else:
+        _build.launch(
+            "decode_batched", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
+            float_type, prob_bits, sl, snb, int(with_digest), status.data_ptr(),
+        )
+    return (out32, *_status(status.T))
+
+
+def decode_float_batched(
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+):
+    fn = decode_float_batched_cuda if arcs.is_cuda else decode_float_batched_plain
+    return fn(arcs, float_type, out_max_words, prob_bits, static_length, with_digest)
+
+
+def decode_raw_batched_plain(arcs, prob_bits, out_max, static_nb=None, with_digest=False):
+    """Plain version of the per-member-table raw-byte decode: each row of
+    `arcs` ((B, A/4) int32) decoded as :func:`decode_raw_plain` decodes one
+    archive, reading nothing past its row. Returns (out32 (B, out_max/4),
+    success (B,), size (B,), digest (B,))."""
+    _check_batch(arcs, out_max, prob_bits)
+    res = plain_decode.decode_rows(layout.to_u32(arcs), prob_bits, out_max,
+                                   static_nb=static_nb)
+    out32 = res["out"].view(torch.int32)
+    return out32, res["success"], res["size"], _digest(out32, with_digest)
+
+
+def decode_raw_batched_cuda(arcs, prob_bits, out_max, static_nb=None, with_digest=False):
+    """Launch the batched raw-byte configuration of ``csrc/decode.cu``, one
+    launch for all B rows; same contract as :func:`decode_raw_batched_plain`."""
+    _check_batch(arcs, out_max, prob_bits)
+    _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
+    B, A32 = arcs.shape
+    dev = arcs.device
+    out32 = torch.empty((B, out_max // 4), dtype=torch.int32, device=dev)
+    status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    _build.launch(
+        "decode_raw_batched", arcs.data_ptr(), B, A32, out32.data_ptr(),
+        out_max // C.DEFAULT_BLOCK_SIZE, prob_bits,
+        -1 if static_nb is None else static_nb, int(with_digest), status.data_ptr(),
+    )
+    return (out32, *_status(status.T))
+
+
+def ans_decode_batched(archives, prob_bits, out_max, static_nb=None, verify_checksum=False):
+    """Decode B raw ANS archives with one launch.
+
+    Counterpart of ``dietgpu_tpu.ans.pallas_decode.ans_decode_batched_pallas``.
+    `archives` is (B, A/4) int32 u32 words or (B, A) uint8 bytes, member
+    m's archive at the start of row m; the row length is the member stride,
+    and nothing past a member's row is read. `out_max` is each member's
+    output capacity in bytes, a positive multiple of 4096; the members'
+    sizes may be ragged, each read from its own header on the device.
+    `static_nb`, if given, is every member's block count: the geometry
+    comes from it and a member whose header disagrees fails `success`.
+
+    Returns dict, on the archives' device: out ((B, out_max) uint8, zero
+    past each block's symbols), size ((B,) int64 header byte counts),
+    success ((B,) bool), checksum_ok ((B,) bool; False only when
+    `verify_checksum`, the member carries a checksum, and its output's
+    digest differs from it).
+    """
+    arcs = archives
+    if archives.dtype == torch.uint8:
+        if archives.dim() != 2 or archives.shape[1] % 4:
+            raise ValueError("ans decode: a byte batch must be (B, A) with A % 4 == 0")
+        arcs = archives.contiguous().view(torch.int32)
+    fn = decode_raw_batched_cuda if arcs.is_cuda else decode_raw_batched_plain
+    out32, success, size, digest = fn(arcs, prob_bits, out_max, static_nb, verify_checksum)
+    checksum_ok = torch.ones(arcs.shape[0], dtype=torch.bool, device=arcs.device)
+    if verify_checksum and arcs.shape[1] >= 6:
+        opts, stored = layout.to_u32(arcs[:, 4:6]).unbind(1)
+        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
+    return {
+        "out": out32.view(torch.uint8),
         "size": size,
         "success": success,
         "checksum_ok": checksum_ok,

@@ -9,6 +9,12 @@ CUDA tensor goes through the kernels; a CPU tensor through their plain
 versions in :mod:`.encode` and :mod:`.cuda_hist`. The glue between them
 (probability quantization, tables, sections, prefix) is torch on either
 device.
+
+The batched forms encode B members, rows of one (B, L/4) buffer, each with
+its own table and length, with one launch of each kernel whatever B is
+(counterpart of ``ans_encode_batched_pallas``: the per-member-table encode
+and the batched assembly), and :func:`ans_encode_batched` is the raw-ANS
+batch entry point.
 """
 
 import torch
@@ -150,3 +156,153 @@ def _encode(data, length, prob_bits, use_checksum, precomputed_histogram,
         arc32, 0, data32, length, prob_bits, pdf, use_checksum, cks, plain=plain
     )
     return arc32, size
+
+
+# ---- batched: B members, rows of one buffer, one launch per kernel ----
+
+
+def encode_blocks_batched_cuda(data32, lengths_t, prob_bits, tables):
+    """Launch the batched form of ``csrc/encode.cu``, one launch for all B
+    members; same contract as :func:`encode.encode_blocks_batched` except
+    that staging words past a block's count are left unwritten."""
+    B, n4 = data32.shape
+    NBm = n4 * 4 // C.DEFAULT_BLOCK_SIZE
+    _build.check_cuda_tensor(data32, "encode data", torch.int32, B * NBm * 1024)
+    _build.check_cuda_tensor(lengths_t, "encode lengths", torch.int64, B, align=8)
+    _build.check_cuda_tensor(tables, "encode tables", torch.int32, B * 512, align=4)
+    dev = data32.device
+    staged = torch.empty((B * NBm, plain_encode.MW), dtype=torch.int16, device=dev)
+    counts = torch.empty(B * NBm, dtype=torch.int32, device=dev)
+    states = torch.empty((B * NBm, C.NUM_INTERLEAVED), dtype=torch.int32, device=dev)
+    _build.launch(
+        "encode_batched", data32.data_ptr(), B, NBm, lengths_t.data_ptr(), prob_bits,
+        tables.data_ptr(), staged.data_ptr(), counts.data_ptr(), states.data_ptr(),
+    )
+    return staged, counts, states
+
+
+def assemble_payload_batched_cuda(arcs, ds32_t, staged, counts, prefix):
+    """Launch the batched form of ``csrc/assembly.cu``, one launch for all B
+    members; same contract as :func:`encode.assemble_payload_batched`. Each
+    payload offset in `ds32_t` must be a multiple of 4 u32."""
+    B, nb = prefix.shape
+    if nb == 0:
+        return
+    _build.check_cuda_tensor(arcs, "assembly archives", torch.int32)
+    if arcs.dim() != 2 or arcs.shape[0] != B or arcs.shape[1] % 4:
+        raise ValueError("assembly: the archives must be B rows of a multiple of 16 bytes")
+    _build.check_cuda_tensor(ds32_t, "assembly offsets", torch.int64, B, align=8)
+    _build.check_cuda_tensor(staged, "assembly staged", torch.int16, B * nb * plain_encode.MW)
+    _build.check_cuda_tensor(counts, "assembly counts", torch.int32, B * nb, align=4)
+    _build.check_cuda_tensor(prefix, "assembly prefix", torch.int32, B * nb, align=4)
+    _build.launch(
+        "assembly_batched", staged.data_ptr(), counts.data_ptr(), prefix.data_ptr(),
+        B, nb, arcs.data_ptr(), arcs.shape[1], ds32_t.data_ptr(),
+    )
+
+
+def ans_encode_batched_into(
+    arcs, base32, data32, lengths, prob_bits, pdfs, use_checksum=False,
+    checksums=None, *, plain, lengths_t=None,
+):
+    """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
+    int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
+    R) int32) at u32 offset `base32` (a multiple of 4), in place, for every
+    member at once: one encode launch, the sections of all members, one
+    assembly launch.
+
+    `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
+    copy on the device, if the caller has one. `plain` selects the kernels'
+    plain versions, as in :func:`ans_encode_into`. Returns the archives'
+    byte sizes, (B,) int64 on the device, with SIZE_OVERFLOW_BIT where a
+    member's block overflowed.
+    """
+    if prob_bits not in C.SUPPORTED_PROB_BITS:
+        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
+    if base32 % 4:
+        raise ValueError("ans encode: the archive offset must be 16-byte aligned")
+    if lengths_t is None:
+        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=data32.device)
+    tables = plain_encode.encode_table(pdfs)
+    encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
+    staged, counts, states = encode_fn(data32, lengths_t, prob_bits, tables)
+    prefix, _, ds32_t, sizes = plain_encode.write_sections_batched(
+        arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
+    )
+    assemble_fn = (
+        plain_encode.assemble_payload_batched if plain else assemble_payload_batched_cuda
+    )
+    assemble_fn(arcs, ds32_t, staged, counts, prefix)
+    return sizes
+
+
+def ans_encode_batched(
+    datas, length, pdfs=None, prob_bits=C.DEFAULT_PROB_BITS, use_checksum=False
+):
+    """Compress the first length[m] bytes of row m of `datas` into archive
+    m, for B members with one launch of each kernel.
+
+    Counterpart of ``dietgpu_tpu.ans.pallas_encode.ans_encode_batched_pallas``
+    and, with ``pdfs=None``, of the JAX package's one-grid batch encode
+    (``api._batch_ans_encode_onegrid``: per-member histograms, then
+    ``normalize_probs``, then the batched encode). `datas` is (B, L) uint8
+    or the same bytes packed as (B, L/4) int32, L a positive multiple of
+    4096; `length` is an int (every member) or B ints, each in [0, L];
+    `pdfs` is (B, 256) weights summing to 2^prob_bits per member, or None
+    for each member's own quantized histogram (one launch of the histogram
+    kernel for the batch, the checksum fused when `use_checksum`).
+
+    Returns (archives (B, A/4) int32, sizes (B,) int64) with A =
+    encode.archive_buffer_bytes(L), the port's own member stride: bytes
+    [0, sizes[m]) of row m are member m's archive, byte for byte the JAX
+    package's; SIZE_OVERFLOW_BIT marks a member whose block overflowed.
+    Nothing is read back to the host, and the number of torch ops does not
+    depend on B.
+    """
+    return _encode_batched(datas, length, pdfs, prob_bits, use_checksum,
+                           plain=not datas.is_cuda)
+
+
+def ans_encode_batched_plain(
+    datas, length, pdfs=None, prob_bits=C.DEFAULT_PROB_BITS, use_checksum=False
+):
+    """:func:`ans_encode_batched` through every kernel's plain version, on
+    the device of `datas`: the reference the chip check holds the batched
+    kernels against on the card."""
+    return _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain=True)
+
+
+def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain):
+    if datas.dim() != 2:
+        raise ValueError("ans encode: a batch is (B, L) uint8 or (B, L/4) int32")
+    data32 = datas.contiguous().view(torch.int32) if datas.dtype == torch.uint8 else datas
+    if data32.dtype != torch.int32:
+        raise ValueError(f"ans encode: unsupported batch dtype {datas.dtype}")
+    B, n4 = data32.shape
+    L = 4 * n4
+    if B == 0 or L == 0 or L % C.DEFAULT_BLOCK_SIZE:
+        raise ValueError(f"ans encode: {B} rows of {L} bytes, not a batch of 4096-byte blocks")
+    lengths = [int(n) for n in length] if hasattr(length, "__len__") else [int(length)] * B
+    if len(lengths) != B or not all(0 <= n <= L for n in lengths):
+        raise ValueError(f"ans encode: need {B} lengths in [0, {L}]")
+    dev = data32.device
+    lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    hist = cks = None
+    if pdfs is None or use_checksum:
+        hist_fn = (
+            cuda_hist.histogram_u8_batched_plain if plain
+            else cuda_hist.histogram_u8_batched_cuda
+        )
+        hist, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
+    if pdfs is None:
+        pdfs = stats.normalize_probs(hist, lengths_t, prob_bits)
+    else:
+        pdfs = layout.to_u32(pdfs.to(dev))
+    arcs = torch.empty(
+        (B, plain_encode.archive_buffer_bytes(L) // 4), dtype=torch.int32, device=dev
+    )
+    sizes = ans_encode_batched_into(
+        arcs, 0, data32, lengths, prob_bits, pdfs, use_checksum, cks, plain=plain,
+        lengths_t=lengths_t,
+    )
+    return arcs, sizes

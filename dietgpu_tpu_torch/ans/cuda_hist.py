@@ -6,7 +6,10 @@ histogram of the first `length` bytes of a packed little-endian byte
 stream, with the folded XOR checksum of the same bytes fused into the pass.
 
 A CUDA tensor goes through the kernel; a CPU tensor through the plain
-version.
+version. The batched forms (counterpart of the vmapped
+``histogram_u8_pallas`` of the JAX package's one-grid batch encode) give
+each row of a (B, n4) batch its own length, histogram and checksum, in one
+launch.
 """
 
 import torch
@@ -57,6 +60,52 @@ def histogram_u8_cuda(data32, length, with_checksum=False):
         cks.data_ptr() if with_checksum else None,
     )
     return hist, cks[0]
+
+
+def _check_batched(data32, lengths):
+    if data32.dtype != torch.int32 or data32.dim() != 2:
+        raise ValueError("histogram: a batch is (B, n4) int32 packed bytes")
+    lengths = [int(n) for n in lengths]
+    if len(lengths) != data32.shape[0]:
+        raise ValueError("histogram: one length per member")
+    if not all(0 <= n <= 4 * data32.shape[1] for n in lengths):
+        raise ValueError(f"histogram: a length outside [0, {4 * data32.shape[1]}]")
+    return lengths
+
+
+def histogram_u8_batched_plain(data32, lengths, with_checksum=False, lengths_t=None):
+    """Plain version of the batched histogram kernel: :func:`histogram_u8_plain`
+    of each row of `data32` ((B, n4) int32) with its own length (B host
+    ints). Returns (hist (B, 256) int32, checksums (B,) int32).
+    `lengths_t` is the kernel's device copy of the lengths; the plain
+    version does not need it."""
+    lengths = _check_batched(data32, lengths)
+    out = [histogram_u8_plain(d, n, with_checksum) for d, n in zip(data32, lengths)]
+    return torch.stack([h for h, _ in out]), torch.stack([c for _, c in out])
+
+
+def histogram_u8_batched_cuda(data32, lengths, with_checksum=False, lengths_t=None):
+    """Launch the batched form of ``csrc/hist.cu``, one launch for all B
+    rows; same contract as :func:`histogram_u8_batched_plain`. `lengths_t`
+    ((B,) int64 on the card) saves the copy of `lengths` when the caller
+    has one. Each row must be a multiple of 16 bytes."""
+    lengths = _check_batched(data32, lengths)
+    _build.check_cuda_tensor(data32, "histogram data", torch.int32)
+    if data32.shape[1] % 4:
+        raise ValueError("histogram: the kernel needs rows of a multiple of 16 bytes")
+    B = data32.shape[0]
+    dev = data32.device
+    if lengths_t is None:
+        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    _build.check_cuda_tensor(lengths_t, "histogram lengths", torch.int64, B, align=8)
+    hist = torch.zeros((B, C.NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    cks = torch.zeros(B, dtype=torch.int32, device=dev)
+    _build.launch(
+        "hist_batched", data32.data_ptr(), B, data32.shape[1] // 4,
+        lengths_t.data_ptr(), hist.data_ptr(),
+        cks.data_ptr() if with_checksum else None, data32.shape[1],
+    )
+    return hist, cks
 
 
 def histogram_u8(data: torch.Tensor, length: int, with_checksum: bool = False):

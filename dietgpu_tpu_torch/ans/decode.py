@@ -5,14 +5,17 @@ the same reverse 128-step walk over (blocks, 32) states, with the same
 status flags and the same clamps, so a lying header fails `success`
 without indexing out of bounds. It is the plain version of the decode half
 of ``csrc/decode.cu``. It reads the header on the host (it is the plain
-version; the kernel reads it on the device).
+version; the kernel reads it on the device). :func:`decode_rows` decodes a
+batch of archives, each with its own table, in one pass (plain version of
+the per-member-table decode); the single decoder is its one-row case.
 """
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from . import layout
-from .checksum import checksum_u8
+from .checksum import checksum_rows
 
 S = C.STEPS_PER_BLOCK
 W = C.NUM_INTERLEAVED
@@ -21,14 +24,15 @@ MW = C.MAX_COMP_WORDS_PER_BLOCK
 
 def build_decode_lut(pdf: torch.Tensor, prob_bits: int) -> torch.Tensor:
     """Packed decode LUT: (sminus << 20) | (pdf << 8) | sym, size
-    2^prob_bits, int64 (reference TableT packing, GpuANSDecode.cuh:34-41)."""
+    2^prob_bits, int64 (reference TableT packing, GpuANSDecode.cuh:34-41);
+    (B, 2^prob_bits) for a (B, 256) batch of pdfs."""
     K = 1 << prob_bits
     pdf = layout.to_u32(pdf)
-    incl = torch.cumsum(pdf, 0)
-    slots = torch.arange(K, device=pdf.device)
+    incl = torch.cumsum(pdf, -1)
+    slots = torch.arange(K, device=pdf.device).expand(*pdf.shape[:-1], K).contiguous()
     sym = torch.searchsorted(incl, slots, right=True).clamp(max=C.NUM_SYMBOLS - 1)
-    pdf_of = pdf[sym]
-    cdf_of = incl[sym] - pdf_of
+    pdf_of = torch.gather(pdf, -1, sym)
+    cdf_of = torch.gather(incl, -1, sym) - pdf_of
     sminus = (slots - cdf_of) & layout.U32_MASK
     return ((sminus << 20) | (pdf_of << 8) | sym) & layout.U32_MASK
 
@@ -41,61 +45,97 @@ def ans_decode_padded(arc32, prob_bits, out_max, verify_checksum=False):
     match, capacity sufficient), checksum_ok (False only on a verified
     mismatch). All are tensors on the archive's device.
     """
+    res = decode_rows(layout.to_u32(arc32)[None], prob_bits, out_max,
+                      verify_checksum=verify_checksum)
+    return {k: v[0] for k, v in res.items()}
+
+
+def decode_rows(u, prob_bits, out_max, base=None, static_nb=None, verify_checksum=False):
+    """Decode B archives at once, archive m at u32 offset base[m] (host
+    ints, default 0) of row m of `u` ((B, A32) int64 u32 values); each row
+    is decoded exactly as :func:`ans_decode_padded` decodes
+    ``row[base[m]:]`` alone, clamps included. `static_nb` is the batched
+    path's known block count: the geometry comes from it and success
+    requires the header's count to equal it (as ``static_nb`` in
+    ``ans_decode_batched_pallas``).
+
+    Returns the dict of :func:`ans_decode_padded` with a leading (B,) dim.
+    """
     assert out_max % C.DEFAULT_BLOCK_SIZE == 0 and out_max > 0
-    dev = arc32.device
+    dev = u.device
+    B, A32 = u.shape
     NB = out_max // C.DEFAULT_BLOCK_SIZE
     K = 1 << prob_bits
-    u = layout.to_u32(arc32)
-    if u.shape[0] < 137:
-        u = torch.cat([u, u.new_zeros(137 - u.shape[0])])
-    A32 = u.shape[0]
+    base = np.zeros(B, np.int64) if base is None else np.asarray(base, np.int64)
+    rel_len = A32 - base
+    if A32 == 0:
+        u = u.new_zeros(B, 1)
+    # a row shorter than 137 words reads as zero-padded to 137
+    lim = np.maximum(rel_len, 137)
+    base_t, rel_t, lim_t = (
+        torch.from_numpy(x).to(dev)[:, None] for x in (base, rel_len, lim)
+    )
 
-    h = u[:8].tolist()
-    magic_ok = h[0] == (C.ANS_MAGIC << 16) | C.ANS_VERSION
-    nb = layout.as_i32(h[1])
-    n = layout.as_i32(h[2])
-    pb_ok = (h[4] & 0xF) == prob_bits
-    has_checksum = (h[4] & 0x10) != 0
-    success = magic_ok and pb_ok and n <= out_max
-    nb_eff = min(max(nb, 0), NB)
+    def take(rel):
+        """Words at (B, k) indices relative to each archive, clamped to
+        [0, lim - 1] and zero past the archive's end."""
+        rel = torch.minimum(rel.clamp(min=0), lim_t - 1)
+        v = torch.gather(u, 1, (rel + base_t).clamp(max=u.shape[1] - 1))
+        return torch.where(rel < rel_t, v, 0)
 
-    pw = u[8:136]
-    pdf = torch.stack([pw & 0xFFFF, pw >> 16], dim=1).reshape(C.NUM_SYMBOLS)
+    def cols(first, k):
+        return (first + torch.arange(k, device=dev))[None, :].expand(B, k)
+
+    h = take(cols(0, 8)).tolist()
+    nb = np.array([layout.as_i32(r[1]) for r in h], np.int64)
+    n = np.array([layout.as_i32(r[2]) for r in h], np.int64)
+    success = np.array(
+        [r[0] == (C.ANS_MAGIC << 16) | C.ANS_VERSION and (r[4] & 0xF) == prob_bits
+         for r in h]
+    ) & (n <= out_max)
+    has_checksum = np.array([(r[4] & 0x10) != 0 for r in h])
+    nb_eff = np.clip(nb, 0, NB)
+    nb_geo, nb_live = nb_eff, nb_eff
+    if static_nb is not None:
+        nb_geo = np.full(B, min(static_nb, NB), np.int64)
+        success &= nb == nb_geo
+        nb_live = np.minimum(nb_geo, nb_eff)
+    geo_t, live_t = (torch.from_numpy(x).to(dev)[:, None] for x in (nb_geo, nb_live))
+
+    pw = take(cols(8, 128))
+    pdf = torch.stack([pw & 0xFFFF, pw >> 16], dim=2).reshape(B, C.NUM_SYMBOLS)
     lut = build_decode_lut(pdf, prob_bits)
 
-    states = u[136 : 136 + NB * W]
-    states = torch.cat([states, states.new_zeros(NB * W - states.shape[0])])
-    state = states.reshape(NB, W)
+    state = take(cols(136, NB * W)).reshape(B * NB, W)
 
-    bidx = torch.arange(NB, device=dev)
-    bw_start = 136 + nb_eff * W
-    x_idx = (bw_start + 2 * bidx).clamp(0, A32 - 1)
-    y_idx = (bw_start + 2 * bidx + 1).clamp(0, A32 - 1)
-    live = bidx < nb_eff
-    bw_x = torch.where(live, u[x_idx], 0)
-    bw_y = torch.where(live, u[y_idx], 0)
+    bidx = torch.arange(NB, device=dev)[None, :]
+    bw_start = 136 + geo_t * W
+    live = bidx < live_t
+    bw_x = torch.where(live, take(bw_start + 2 * bidx), 0).reshape(B * NB)
+    bw_y = torch.where(live, take(bw_start + 2 * bidx + 1), 0)
     uncomp = bw_x >> 16
     pos = bw_x & 0xFFFF
     starts = torch.where(bw_y >= 1 << 31, bw_y - (1 << 32), bw_y)
-    data_start = bw_start + 2 * (nb_eff + (nb_eff & 1))
+    data_start = bw_start + 2 * (geo_t + (geo_t & 1))
 
-    # per-block streams, (NB, MW) u16 values
+    # per-block streams, (B * NB, MW) u16 values
     cols32 = torch.arange(MW // 2, device=dev)
-    sidx = (data_start + (starts[:, None] + 2 * cols32[None, :]) // 2).clamp(0, A32 - 1)
-    s32 = u[sidx]
-    streams = torch.stack([s32 & 0xFFFF, s32 >> 16], dim=2).reshape(NB, MW)
+    sidx = data_start[:, :, None] + (starts[:, :, None] + 2 * cols32) // 2
+    s32 = take(sidx.reshape(B, NB * MW // 2)).reshape(B * NB, MW // 2)
+    streams = torch.stack([s32 & 0xFFFF, s32 >> 16], dim=2).reshape(B * NB, MW)
 
     steps = (uncomp + W - 1) // W
     remainder = uncomp % W
     lanes = torch.arange(W, device=dev)
-    out = torch.zeros((NB, S, W), dtype=torch.uint8, device=dev)
+    out = torch.zeros((B * NB, S, W), dtype=torch.uint8, device=dev)
     for k in reversed(range(S)):
         active = k < steps
         is_tail = active & (k == steps - 1) & (remainder > 0)
         lane_limit = torch.where(is_tail, remainder, W)
         act = active[:, None] & (lanes[None, :] < lane_limit[:, None])
 
-        t = lut[state & (K - 1)]
+        slot = (state & (K - 1)).reshape(B, NB * W)
+        t = torch.gather(lut, 1, slot).reshape(B * NB, W)
         new_state = ((t >> 8) & 0xFFF) * (state >> prob_bits) + (t >> 20)
         state = torch.where(act, new_state & layout.U32_MASK, state)
 
@@ -107,13 +147,14 @@ def ans_decode_padded(arc32, prob_bits, out_max, verify_checksum=False):
         pos = pos - read.sum(dim=1)
         out[:, k] = torch.where(act, t & 0xFF, 0).to(torch.uint8)
 
-    out = out.reshape(-1)
-    checksum_ok = True
-    if verify_checksum and has_checksum:
-        checksum_ok = int(checksum_u8(out, max(n, 0))) == h[5]
+    out = out.reshape(B, out_max)
+    checksum_ok = np.ones(B, bool)
+    if verify_checksum and has_checksum.any():
+        got = checksum_rows(out, np.clip(n, 0, out_max).tolist()).tolist()
+        checksum_ok = ~has_checksum | (np.array(got) == np.array([r[5] for r in h]))
     return {
         "out": out,
-        "size": torch.tensor(h[2], dtype=torch.int64, device=dev),
-        "success": torch.tensor(success, device=dev),
-        "checksum_ok": torch.tensor(checksum_ok, device=dev),
+        "size": torch.tensor([r[2] for r in h], dtype=torch.int64, device=dev),
+        "success": torch.from_numpy(success).to(dev),
+        "checksum_ok": torch.from_numpy(checksum_ok).to(dev),
     }

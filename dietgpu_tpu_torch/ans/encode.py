@@ -11,15 +11,20 @@ the CUDA path shares:
 2. :func:`write_sections` -- header, probs, final states, blockWords and
    the 16-byte-aligned exclusive prefix, written into the archive buffer
    (torch glue on either device, as the JAX package keeps it outside any
-   kernel);
+   kernel; :func:`write_sections_batched` does it for B archives at once);
 3. :func:`assemble_payload` -- each block's staged words copied to its
    prefix offset (plain version of ``csrc/assembly.cu``).
+
+Each step has a batched form for B members of one padded length, each
+with its own table and length (counterpart of ``ans_encode_batched_pallas``,
+the per-member-table encode); the single forms are its one-member case.
 
 Archive layout (GpuANSUtils.cuh:67-229), u32 words from the archive base:
 [0:8) header, [8:136) u16 probs, [136:136+32nb) states, then
 round_up(nb,2) (x, y) blockWords pairs, then the payload.
 """
 
+import numpy as np
 import torch
 
 from .. import constants as C
@@ -40,9 +45,10 @@ def archive_buffer_bytes(padded_len: int) -> int:
 
 
 def encode_table(pdf: torch.Tensor) -> torch.Tensor:
-    """The kernel's (512,) int32 table: e1 for the 256 symbols, then magic."""
+    """The kernel's (512,) int32 table: e1 for the 256 symbols, then magic;
+    (B, 512) for a (B, 256) batch of pdfs."""
     e1, magic = stats.build_encode_table(pdf)
-    return layout.to_i32(torch.cat([e1, magic]))
+    return layout.to_i32(torch.cat([e1, magic], -1))
 
 
 def encode_blocks(data32: torch.Tensor, length: int, prob_bits: int, table):
@@ -54,23 +60,39 @@ def encode_blocks(data32: torch.Tensor, length: int, prob_bits: int, table):
     first 2560 words are kept), the word counts, and the final lane states.
     Symbols at index >= length are not encoded.
     """
-    data = layout.u32_to_u8le(data32)
-    L = data.shape[0]
+    lengths = torch.tensor([length], dtype=torch.int64, device=data32.device)
+    return encode_blocks_batched(data32[None], lengths, prob_bits, table[None])
+
+
+def encode_blocks_batched(data32, lengths, prob_bits, tables):
+    """Plain version of the batched encode kernel: :func:`encode_blocks` of
+    each row of `data32` ((B, L/4) int32) with its own length ((B,) int64)
+    and table ((B, 512)). Returns the outputs of all members stacked,
+    member m's block b at row m * NBm + b (NBm = L/4096)."""
+    B = data32.shape[0]
+    data = data32.contiguous().view(torch.uint8)
+    L = data.shape[1]
     NB = L // C.DEFAULT_BLOCK_SIZE
     dev = data.device
-    t = layout.to_u32(table)
-    e1, magic = t[:256], t[256:]
-    syms = data.long().reshape(NB, S, W)
-    valid = (torch.arange(L, device=dev) < length).reshape(NB, S, W)
+    t = layout.to_u32(tables)
+    e1, magic = t[:, :256], t[:, 256:]
+    syms = data.long().reshape(B, NB * S * W)
+    valid = (torch.arange(L, device=dev)[None, :] < lengths.to(dev)[:, None]).reshape(
+        B * NB, S, W
+    )
     check_shift = C.ANS_STATE_BITS - prob_bits
 
-    state = torch.full((NB, W), C.ANS_START_STATE, dtype=torch.int64, device=dev)
-    vals = torch.zeros((NB, S, W), dtype=torch.int64, device=dev)
-    mask = torch.zeros((NB, S, W), dtype=torch.bool, device=dev)
+    def lookup(tab, sym):  # each member's table at its own blocks' symbols
+        return torch.gather(tab, 1, sym.reshape(B, NB * W)).reshape(B * NB, W)
+
+    syms = syms.reshape(B, NB, S, W)
+    state = torch.full((B * NB, W), C.ANS_START_STATE, dtype=torch.int64, device=dev)
+    vals = torch.zeros((B * NB, S, W), dtype=torch.int64, device=dev)
+    mask = torch.zeros((B * NB, S, W), dtype=torch.bool, device=dev)
     for s in range(S):
-        sym = syms[:, s]
+        sym = syms[:, :, s]
         v = valid[:, s]
-        e1v = e1[sym]
+        e1v = lookup(e1, sym)
         cdf = e1v & 0xFFF
         pdf = (e1v >> 12) & 0xFFF
         shift = e1v >> 24
@@ -80,18 +102,18 @@ def encode_blocks(data32: torch.Tensor, length: int, prob_bits: int, table):
         mask[:, s] = write
         state = torch.where(write, state >> C.ANS_ENCODED_BITS, state)
 
-        tq = stats.umulhi_u32(state, magic[sym])
+        tq = stats.umulhi_u32(state, lookup(magic, sym))
         div = ((tq + state) & layout.U32_MASK) >> shift
         mod = (state - div * pdf) & layout.U32_MASK
         new_state = ((div << prob_bits) + mod + cdf) & layout.U32_MASK
         state = torch.where(v, new_state, state)
 
-    flat_mask = mask.reshape(NB, C.DEFAULT_BLOCK_SIZE)
-    flat_vals = vals.reshape(NB, C.DEFAULT_BLOCK_SIZE)
+    flat_mask = mask.reshape(B * NB, C.DEFAULT_BLOCK_SIZE)
+    flat_vals = vals.reshape(B * NB, C.DEFAULT_BLOCK_SIZE)
     counts = flat_mask.sum(dim=1)
     dst = torch.cumsum(flat_mask.long(), dim=1) - 1
     cols = torch.where(flat_mask & (dst < MW), dst, MW)
-    staged = torch.zeros((NB, MW + 1), dtype=torch.int64, device=dev)
+    staged = torch.zeros((B * NB, MW + 1), dtype=torch.int64, device=dev)
     staged.scatter_(1, cols, torch.where(cols < MW, flat_vals, 0))
     staged = staged[:, :MW]
     staged = torch.where(staged >= 1 << 15, staged - (1 << 16), staged)
@@ -105,63 +127,123 @@ def write_sections(
     """Write header, probs, states and blockWords of the archive at u32
     offset `base32` of `arc32`; compute the payload prefix.
 
-    Returns (prefix (nb,) int32 u16 offsets, payload u32 offset from the
+    Returns (prefix (NB,) int32 u16 offsets, payload u32 offset from the
     buffer start, size 0-dim int64 archive bytes, SIZE_OVERFLOW_BIT set when
     a block overflowed). Runs on the device of its inputs without a host
-    round trip.
+    round trip. The one-member case of :func:`write_sections_batched`.
     """
-    dev = arc32.device
-    nb = C.div_up(length, C.DEFAULT_BLOCK_SIZE)
-    words = counts[:nb].long()
-    padded = (words + C.WORDS_PER_ALIGN - 1) & ~(C.WORDS_PER_ALIGN - 1)
-    incl = torch.cumsum(padded, 0)
-    prefix = incl - padded
-    total = incl[-1] if nb else torch.zeros((), dtype=torch.int64, device=dev)
-
-    options = prob_bits | (int(use_checksum) << 4)
-    header = torch.tensor(
-        [(C.ANS_MAGIC << 16) | C.ANS_VERSION, nb, length, 0, options, 0, 0, 0],
-        dtype=torch.int64, device=dev,
+    prefix, ds32, _, sizes = write_sections_batched(
+        arc32[None], base32, pdf[None], states, counts, [length], prob_bits,
+        use_checksum, None if checksum is None else torch.as_tensor(checksum)[None],
     )
-    header[3] = total
-    if use_checksum:
-        header[5] = layout.to_u32(checksum)
-    arc32[base32 : base32 + 8] = layout.to_i32(header)
-    pdf = layout.to_u32(pdf)
-    arc32[base32 + 8 : base32 + 136] = layout.to_i32(pdf[0::2] | (pdf[1::2] << 16))
-    bw_start = base32 + 136 + nb * W
-    arc32[base32 + 136 : bw_start] = states[:nb].reshape(-1)
+    return prefix[0], ds32[0], sizes[0]
 
-    rnb2 = C.round_up(nb, 2)
-    uncomp = torch.full((nb,), C.DEFAULT_BLOCK_SIZE, dtype=torch.int64, device=dev)
-    if nb:
-        uncomp[nb - 1] = length - (nb - 1) * C.DEFAULT_BLOCK_SIZE
-    bw = torch.zeros((rnb2, 2), dtype=torch.int64, device=dev)
-    bw[:nb, 0] = (uncomp << 16) | words
-    bw[:nb, 1] = prefix
-    ds32 = bw_start + 2 * rnb2
-    arc32[bw_start:ds32] = layout.to_i32(bw.reshape(-1))
 
-    size = (ds32 - base32 + total // 2) * 4
-    overflow = (words > MW).any()
-    size = torch.where(overflow, size | C.SIZE_OVERFLOW_BIT, size)
-    return prefix.to(torch.int32), ds32, size
+def write_sections_batched(
+    arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum=False,
+    checksums=None,
+):
+    """The sections of B archives, archive m at u32 offset `base32` of row m
+    of `arcs` ((B, R) int32, contiguous).
+
+    `pdfs` is (B, 256); `states` (B * NBm, 32) and `counts` (B * NBm,) are
+    the encode's outputs, member m's block b at row m * NBm + b, with a
+    count of 0 for every block past the member's length; `lengths` is B
+    host ints (ragged block counts allowed); `checksums` (B,) when
+    `use_checksum`. Each row gets what :func:`write_sections` writes.
+
+    The geometry comes from the host lengths, so nothing is read back from
+    the device; only B block counts, lengths and offsets go to it, and the
+    torch ops are the same few whatever B and the block count are. Every
+    row takes the states of all NBm blocks, then zeros up to 2
+    round_up(NBm, 2) words past them; each member's blockWords are then
+    scattered over its own states from word 32 nb on, zero past its blocks.
+    What is left of the states and zeros lies at or past the payload
+    offset, where the payload overwrites it or past the archive's end.
+
+    Returns (prefix (B, NBm) int32, ds32 list of B host ints (payload u32
+    offsets within the rows), ds32 as a (B,) int64 device tensor, sizes
+    (B,) int64 archive bytes with SIZE_OVERFLOW_BIT where a block
+    overflowed).
+    """
+    B, R = arcs.shape
+    dev = arcs.device
+    NBm = counts.shape[0] // B
+    lengths = np.asarray(lengths, dtype=np.int64).reshape(B)
+    nbs = -(-lengths // C.DEFAULT_BLOCK_SIZE)
+    st32 = base32 + 136
+    bw32 = st32 + nbs * W
+    ds32 = bw32 + 2 * (nbs + (nbs & 1))
+    span = NBm * W + 2 * C.round_up(NBm, 2)
+    if st32 + span > R:
+        raise ValueError("write_sections: the rows are too short for the sections")
+    # the host-known values in one copy: the header's words but the total
+    # and checksum, then the payload and blockWords offsets, and the
+    # archive bytes before the payload
+    opts = prob_bits | (int(use_checksum) << 4)
+    head = np.zeros((11, B), np.int64)
+    head[0], head[1], head[2], head[4], head[8], head[9], head[10] = (
+        (C.ANS_MAGIC << 16) | C.ANS_VERSION, nbs, lengths, opts, ds32, bw32,
+        4 * (ds32 - base32))
+    host = torch.from_numpy(head).to(dev)
+
+    words = counts.view(B, NBm).long()
+    padded = (words + C.WORDS_PER_ALIGN - 1) & ~(C.WORDS_PER_ALIGN - 1)
+    incl = torch.cumsum(padded, 1)
+    prefix = incl - padded
+    total = incl[:, -1]
+
+    pdfs = layout.to_u32(pdfs)
+    cks = layout.to_u32(checksums) if use_checksum else host[5]
+    hdr = torch.stack([host[0], host[1], host[2], total, host[4], cks, host[6], host[7]], 1)
+    arcs[:, base32:st32] = layout.to_i32(
+        torch.cat([hdr, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1)
+    )
+    arcs[:, st32 : st32 + NBm * W] = states.view(B, NBm * W)
+    arcs[:, st32 + NBm * W : st32 + span] = 0
+    # blockWords (x, y) = ((uncompressed bytes << 16) | words, prefix) for
+    # the member's blocks, zero after them (the pair that makes the count
+    # even among them); all below 2^31
+    uncomp = (host[2][:, None] - torch.arange(NBm, device=dev) * C.DEFAULT_BLOCK_SIZE).clamp(
+        0, C.DEFAULT_BLOCK_SIZE)
+    bw = torch.stack([(uncomp << 16) | words, torch.where(uncomp > 0, prefix, 0)], 2)
+    cols = host[9][:, None] + torch.arange(2 * NBm, device=dev)
+    arcs.scatter_(1, cols, bw.view(B, 2 * NBm).to(torch.int32))
+
+    sizes = host[10] + 2 * total  # total u16 words, a multiple of 8
+    overflow = (words > MW).any(1)
+    sizes = torch.where(overflow, sizes | C.SIZE_OVERFLOW_BIT, sizes)
+    return prefix.to(torch.int32), ds32.tolist(), host[8], sizes
 
 
 def assemble_payload(arc32, ds32, staged, counts, prefix):
     """Plain version of the assembly kernel: copy block b's staged words,
     zero-padded to a multiple of 8 u16, to u32 offset ds32 + prefix[b]/2.
     Copies are clamped to the staging row and to the buffer."""
-    nb = prefix.shape[0]
+    ds = torch.tensor([ds32], dtype=torch.int64, device=arc32.device)
+    assemble_payload_batched(arc32[None], ds, staged, counts, prefix[None])
+
+
+def assemble_payload_batched(arcs, ds32, staged, counts, prefix):
+    """Plain version of the batched assembly kernel: :func:`assemble_payload`
+    into each row of `arcs` ((B, R) int32), member m with its own payload
+    offset ds32[m] ((B,) int64) and prefix row ((B, nb) int32), its blocks
+    at rows m * NBm + b of `staged` and `counts` (NBm = rows / B). Copies
+    are clamped to each row."""
+    B, nb = prefix.shape
     if nb == 0:
         return
-    dev = arc32.device
-    w = counts[:nb].long()[:, None]
-    st32 = layout.to_u32(staged[:nb].contiguous().view(torch.int32))
+    R = arcs.shape[1]
+    NBm = staged.shape[0] // B
+    dev = arcs.device
+    rows = (torch.arange(B, device=dev)[:, None] * NBm + torch.arange(nb, device=dev)).reshape(-1)
+    w = counts[rows].long()[:, None]
+    st32 = layout.to_u32(staged[rows].contiguous().view(torch.int32))
     j = torch.arange(MW // 2, device=dev)[None, :]
     lo = torch.where(2 * j < w, st32 & 0xFFFF, 0)
     hi = torch.where(2 * j + 1 < w, st32 & 0xFFFF0000, 0)
     n32 = ((w + C.WORDS_PER_ALIGN - 1) & ~(C.WORDS_PER_ALIGN - 1)).clamp(max=MW) // 2
-    idx = ds32 + prefix.long()[:, None] // 2 + j
-    keep = (j < n32) & (idx < arc32.shape[0])
-    arc32[idx[keep]] = layout.to_i32((lo | hi)[keep])
+    col = (ds32.to(dev)[:, None] + prefix.long() // 2).reshape(-1, 1) + j
+    member = rows[:, None] // NBm
+    keep = (j < n32) & (col < R)
+    arcs.view(-1)[(member * R + col)[keep]] = layout.to_i32((lo | hi)[keep])

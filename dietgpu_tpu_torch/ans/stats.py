@@ -20,15 +20,17 @@ def histogram_u8(data: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def normalize_probs(hist: torch.Tensor, total, prob_bits: int) -> torch.Tensor:
-    """Quantize a histogram to weights summing to exactly 2^prob_bits.
+    """Quantize histograms to weights summing to exactly 2^prob_bits.
 
-    Returns (256,) int64. `total` is an int or a 0-dim tensor, normally
-    ``hist.sum()``.
+    `hist` is (256,) or a batch (..., 256), one histogram per row; `total`
+    is an int or a tensor of the batch shape, normally ``hist.sum(-1)``.
+    Returns int64 of `hist`'s shape. The rows are independent, and the
+    number of torch ops does not depend on the batch size.
     """
     K = 1 << prob_bits
     dev = hist.device
     hist = layout.to_u32(hist)
-    total = layout.to_u32(torch.as_tensor(total, device=dev))
+    total = layout.to_u32(torch.as_tensor(total, device=dev))[..., None]
     ratio = hist.to(torch.float32) / total.to(torch.float32)
     ratio = torch.where(total == 0, 0.0, ratio)
     q = (torch.tensor(float(K), dtype=torch.float32, device=dev) * ratio).to(
@@ -36,7 +38,7 @@ def normalize_probs(hist: torch.Tensor, total, prob_bits: int) -> torch.Tensor:
     )
     q = torch.where((hist > 0) & (q == 0), 1, q)
 
-    diff = K - q.sum()
+    diff = K - q.sum(-1, keepdim=True)
     sym = torch.arange(C.NUM_SYMBOLS, device=dev)
 
     # Deficit branch: +1 per symbol-value pass (GpuANSStatistics.cuh:258-273)
@@ -54,20 +56,24 @@ def normalize_probs(hist: torch.Tensor, total, prob_bits: int) -> torch.Tensor:
     # takes the remaining r from the last r ranks among the values still > 1.
     # m is searched over 0..K, exact whenever no weight exceeds K (every
     # caller passes total == hist.sum(), which bounds each weight by K).
+    # C(m) is evaluated for every m at once, in (K) work per row, not
+    # (K + 1) * 256: C(t) - C(t - 1) is the number of spares >= t, counted
+    # by a search in the negated spares (ascending in rank order), so
+    # C(1..K) is its cumulative sum; C(0) = 0 <= need always.
     key = (q << 16) | sym
-    rank = (key[None, :] > key[:, None]).sum(dim=1)
-    vals0 = torch.zeros_like(q).scatter_(0, rank, q)
+    rank = (key[..., None, :] > key[..., :, None]).sum(-1)
+    vals0 = torch.zeros_like(q).scatter_(-1, rank, q)
     need0 = (-diff).clamp(min=0)
-    ms = torch.arange(K + 1, device=dev)
-    spare = (vals0 - 1).clamp(min=0)
-    cost = torch.minimum(ms[:, None], spare[None, :]).sum(dim=1)  # C(m)
-    m = ((cost <= need0).sum() - 1).clamp(min=0)
+    neg_spare = (1 - vals0).clamp(max=0)
+    neg_t = torch.arange(-1, -K - 1, -1, device=dev).expand(*q.shape[:-1], K)
+    steps = torch.searchsorted(neg_spare, neg_t.contiguous(), right=True)
+    m = (torch.cumsum(steps, -1) <= need0).sum(-1, keepdim=True)
     vals = torch.where(vals0 > 1, (vals0 - m).clamp(min=1), vals0)
-    r = need0 - cost[m]
-    g = (vals > 1).sum()
+    r = need0 + torch.maximum(neg_spare, -m).sum(-1, keepdim=True)  # need - C(m)
+    g = (vals > 1).sum(-1, keepdim=True)
     dec = (sym >= g - r) & (sym < g)
     vals = vals - dec.long()
-    q_exc = vals[rank]
+    q_exc = torch.gather(vals, -1, rank)
 
     q = torch.where(diff > 0, q_def, torch.where(diff < 0, q_exc, q))
     return torch.where(total == 0, torch.zeros_like(q), q)
@@ -103,13 +109,14 @@ def umulhi_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def build_encode_table(pdf: torch.Tensor):
-    """Pack the encode lookup into two u32 arrays (int64).
+    """Pack the encode lookup into two u32 arrays (int64), per row of a
+    (..., 256) pdf.
 
     e1 = (shift << 24) | (pdf << 12) | cdf   (pdf, cdf <= 2^11; shift <= 11)
     e2 = magic
     """
     pdf = layout.to_u32(pdf)
-    cdf = torch.cumsum(pdf, 0) - pdf
+    cdf = torch.cumsum(pdf, -1) - pdf
     magic, shift = div_magic_u32(pdf)
     e1 = ((shift << 24) | (pdf << 12) | cdf) & layout.U32_MASK
     return e1, magic

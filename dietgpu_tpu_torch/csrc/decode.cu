@@ -41,6 +41,18 @@
 //
 // Every read goes through a clamp to the buffer, so a lying header can only
 // fail `success` (status[0]) and never read or write out of bounds.
+//
+// Batched (the per_row_tables=True configurations of the TPU kernel, via
+// ans_decode_batched_pallas and float_decompress_batched_pallas): the grid
+// gains a member dimension, (x, B), each CTA persistent over its member's
+// blocks. Member m's archive is row m of a buffer with a stride of `a32`
+// u32, which is also the clamp bound, so a lying header in member m fails
+// only member m's success and never reads member m + 1; its output is row
+// m of the output, its status is status[3m .. 3m + 3). Each CTA parses its
+// own member's headers and builds that member's LUT, exactly as the single
+// launch (B = 1) does. `static_nb` >= 0 is the batched path's known block
+// count: the block geometry comes from it and success requires the
+// header's count to equal it, as with static_nb in the TPU path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,10 +84,10 @@ __device__ __forceinline__ long long clampll(long long v, long long lo,
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const uint32_t* __restrict__ arc, long long a32,
-              void* __restrict__ out_v, int nb_cap, int float_type,
-              int prob_bits, long long static_length, int with_digest,
-              uint32_t* __restrict__ status) {
+decode_kernel(const uint32_t* __restrict__ arcs, long long a32,
+              void* __restrict__ out_all, int nb_cap, int float_type,
+              int prob_bits, long long static_length, long long static_nb,
+              int with_digest, uint32_t* __restrict__ status_all) {
   __shared__ uint32_t lut[2048];
   __shared__ uint32_t incl[256];
   __shared__ uint32_t pdfs[256];
@@ -86,6 +98,12 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
   const int lane = threadIdx.x % 32;
   // output capacity: words of a float container, bytes of a raw archive
   const long long Lw = (long long)nb_cap * kBlockBytes;
+  constexpr int kOutBytesPerSymbol = kMode == kRaw ? 1 : (kMode == kF32 ? 4 : 2);
+  const long long m = blockIdx.y;
+  const uint32_t* __restrict__ arc = arcs + m * a32;
+  void* __restrict__ out_v =
+      static_cast<uint8_t*>(out_all) + m * Lw * kOutBytesPerSymbol;
+  uint32_t* __restrict__ status = status_all + 3 * m;
 
   // ---- headers: success, the ANS archive's base, the planes' bases ----
   long long base = 0;
@@ -121,6 +139,14 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
   }
   const int nb = (int)ld(arc, a32, base + 1);
   const long long nb_eff = clampll(nb, 0, nb_cap);
+  // blocks of the section geometry, and blocks that decode
+  long long nb_geo = nb_eff;
+  long long nb_live = nb_eff;
+  if (static_nb >= 0) {
+    nb_geo = static_nb < nb_cap ? static_nb : nb_cap;
+    ok = ok && (long long)nb == nb_geo;
+    nb_live = nb_geo < nb_eff ? nb_geo : nb_eff;
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     status[0] = ok ? 1u : 0u;
     status[1] = n_word;
@@ -161,8 +187,8 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
   __syncthreads();
 
   // ---- one warp per block ----
-  const long long bw_start = base + 136 + nb_eff * 32;
-  const long long ds32 = bw_start + 2 * (nb_eff + (nb_eff & 1));
+  const long long bw_start = base + 136 + nb_geo * 32;
+  const long long ds32 = bw_start + 2 * (nb_geo + (nb_geo & 1));
   const uint32_t smask = (uint32_t)K - 1u;
   const bool bf16 = float_type == kBf16;
   uint8_t* sy = syms[warp];
@@ -173,7 +199,7 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
   for (long long b = (long long)blockIdx.x * kWarps + warp; b < nb_cap;
        b += (long long)gridDim.x * kWarps) {
     int kmax = 0;
-    if (b < nb_eff) {
+    if (b < nb_live) {
       const uint32_t bx = ld(arc, a32, bw_start + 2 * b);
       const int start = (int)ld(arc, a32, bw_start + 2 * b + 1);
       const int uncomp = (int)(bx >> 16);
@@ -284,9 +310,11 @@ decode_kernel(const uint32_t* __restrict__ arc, long long a32,
 }
 
 template <int kMode>
-int launch_decode(const void* arc, long long a32, void* out, int nb_cap,
-                  int float_type, int prob_bits, long long static_length,
+int launch_decode(const void* arcs, long long batch, long long a32, void* out,
+                  int nb_cap, int float_type, int prob_bits,
+                  long long static_length, long long static_nb,
                   int with_digest, void* status, void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -294,13 +322,18 @@ int launch_decode(const void* arc, long long a32, void* out, int nb_cap,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
                                                 kThreads, 0);
+  // one wave of CTAs over the whole batch (so the share rounds down), each
+  // member's share persistent over its blocks
   long long grid = (nb_cap + kWarps - 1) / kWarps;
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > cap) grid = cap;
+  const long long share = cap / batch;
+  if (grid > share) grid = share;
   if (grid < 1) grid = 1;
-  decode_kernel<kMode><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(arc), a32, out, nb_cap, float_type,
-      prob_bits, static_length, with_digest, static_cast<uint32_t*>(status));
+  decode_kernel<kMode><<<dim3((unsigned)grid, (unsigned)batch), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(arcs), a32, out, nb_cap, float_type,
+      prob_bits, static_length, static_nb, with_digest,
+      static_cast<uint32_t*>(status));
   return (int)cudaGetLastError();
 }
 
@@ -309,15 +342,27 @@ int launch_decode(const void* arc, long long a32, void* out, int nb_cap,
 // Every entry point: arc holds a32 u32 words; status is 3 u32 zeroed by the
 // caller and receives success, the header's count (words of a float
 // container, bytes of a raw archive) and the folded output digest.
-// static_length < 0 means none.
+// static_length < 0 means none. The batched entry points take `batch`
+// archives, rows of a32 u32 each, write `batch` output rows and 3 status
+// words per member; static_nb < 0 means none.
 
 // f16/bf16 container -> nb_cap * 4096 words as 8-byte aligned u32 pairs.
 extern "C" int dtt_decode(const void* arc, long long a32, void* out,
                           int nb_cap, int float_type, int prob_bits,
                           long long static_length, int with_digest,
                           void* status, void* stream) {
-  return launch_decode<kHalf>(arc, a32, out, nb_cap, float_type, prob_bits,
-                              static_length, with_digest, status, stream);
+  return launch_decode<kHalf>(arc, 1, a32, out, nb_cap, float_type, prob_bits,
+                              static_length, -1, with_digest, status, stream);
+}
+
+extern "C" int dtt_decode_batched(const void* arcs, long long batch,
+                                  long long a32, void* out, int nb_cap,
+                                  int float_type, int prob_bits,
+                                  long long static_length, long long static_nb,
+                                  int with_digest, void* status, void* stream) {
+  return launch_decode<kHalf>(arcs, batch, a32, out, nb_cap, float_type,
+                              prob_bits, static_length, static_nb, with_digest,
+                              status, stream);
 }
 
 // f32 container -> nb_cap * 4096 u32 words, 16-byte aligned.
@@ -325,8 +370,18 @@ extern "C" int dtt_decode_f32(const void* arc, long long a32, void* out,
                               int nb_cap, int prob_bits,
                               long long static_length, int with_digest,
                               void* status, void* stream) {
-  return launch_decode<kF32>(arc, a32, out, nb_cap, 3, prob_bits,
-                             static_length, with_digest, status, stream);
+  return launch_decode<kF32>(arc, 1, a32, out, nb_cap, 3, prob_bits,
+                             static_length, -1, with_digest, status, stream);
+}
+
+extern "C" int dtt_decode_f32_batched(const void* arcs, long long batch,
+                                      long long a32, void* out, int nb_cap,
+                                      int prob_bits, long long static_length,
+                                      long long static_nb, int with_digest,
+                                      void* status, void* stream) {
+  return launch_decode<kF32>(arcs, batch, a32, out, nb_cap, 3, prob_bits,
+                             static_length, static_nb, with_digest, status,
+                             stream);
 }
 
 // raw ANS archive -> nb_cap * 4096 bytes, 16-byte aligned, zero past each
@@ -334,6 +389,15 @@ extern "C" int dtt_decode_f32(const void* arc, long long a32, void* out,
 extern "C" int dtt_decode_raw(const void* arc, long long a32, void* out,
                               int nb_cap, int prob_bits, int with_digest,
                               void* status, void* stream) {
-  return launch_decode<kRaw>(arc, a32, out, nb_cap, 0, prob_bits, -1,
+  return launch_decode<kRaw>(arc, 1, a32, out, nb_cap, 0, prob_bits, -1, -1,
                              with_digest, status, stream);
+}
+
+extern "C" int dtt_decode_raw_batched(const void* arcs, long long batch,
+                                      long long a32, void* out, int nb_cap,
+                                      int prob_bits, long long static_nb,
+                                      int with_digest, void* status,
+                                      void* stream) {
+  return launch_decode<kRaw>(arcs, batch, a32, out, nb_cap, 0, prob_bits, -1,
+                             static_nb, with_digest, status, stream);
 }

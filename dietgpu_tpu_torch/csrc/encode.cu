@@ -1,9 +1,12 @@
 // rANS encode of 4 KiB blocks, 32 interleaved states, with per-block
-// stream compaction into a staging row.
+// stream compaction into a staging row; one table for the whole input
+// (encode_kernel) or one table per member of a batch
+// (encode_batched_kernel).
 //
 // Replaces: dietgpu_tpu/ans/pallas_encode.py:_encode_kernel (via
-// _encode_stage1), the reference's ansEncodeBatchFull / encodeOneWarp
-// (GpuANSEncode.cuh:49-211).
+// _encode_stage1, and with per_row_tables=True via
+// ans_encode_batched_pallas), the reference's ansEncodeBatchFull /
+// encodeOneWarp (GpuANSEncode.cuh:49-211).
 //
 // Bound on the H100: operations, not bytes. A block moves 4 KiB in and at
 // most 5 KiB out, but each of its 4096 symbols is a dependent chain of
@@ -22,7 +25,13 @@
 // words are compacted with __ballot_sync/__popc in (step, lane) order into
 // the block's staging row of 2560 u16. A block whose payload would pass
 // 2560 words stops writing (the count keeps growing, so the caller sees
-// the overflow and sets SIZE_OVERFLOW_BIT, as encode.py:163 does).
+// the overflow and sets SIZE_OVERFLOW_BIT, as encode.py does).
+//
+// Batched: the grid is (ceil(NBm / 4), B), so a CTA never spans members and
+// loads only its own member's table; member m's blocks are rows m * NBm + b
+// of the staging, count and state outputs, and its length comes from a
+// device array. The per-block body is the same function as the single
+// kernel's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,47 +42,43 @@ constexpr int kBlockBytes = 4096;
 constexpr int kLanes = 32;
 constexpr int kMaxWords = 2560;
 constexpr int kWarpsPerCta = 4;
+constexpr int kTableWords = 512;
 constexpr uint32_t kStartState = 1u << 15;
 
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
-encode_kernel(const uint8_t* __restrict__ data, long long nblocks,
-              long long length, int prob_bits,
-              const uint32_t* __restrict__ table,
-              uint16_t* __restrict__ staged, uint32_t* __restrict__ counts,
-              uint32_t* __restrict__ states) {
-  __shared__ uint32_t e1s[256];
-  __shared__ uint32_t magics[256];
-  __shared__ __align__(16) uint8_t syms[kWarpsPerCta][kBlockBytes];
-
+// The CTA's 256-entry table into shared memory: e1 then magic.
+__device__ __forceinline__ void load_table(const uint32_t* __restrict__ table,
+                                           uint32_t* e1s, uint32_t* magics) {
   for (int i = threadIdx.x; i < 256; i += blockDim.x) {
     e1s[i] = table[i];
     magics[i] = table[256 + i];
   }
   __syncthreads();
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long b = (long long)blockIdx.x * kWarpsPerCta + warp;
-  if (b >= nblocks) return;
-
-  const uint4* src = reinterpret_cast<const uint4*>(data + b * kBlockBytes);
-  uint4* dst = reinterpret_cast<uint4*>(syms[warp]);
-  for (int i = lane; i < kBlockBytes / 16; i += kLanes) dst[i] = src[i];
+// One warp encodes one block: `src` is its 4096 symbol bytes (16-byte
+// aligned), `rem` the input's symbols from the block's first one on (only
+// the first min(rem, 4096) are encoded), `sy` the warp's shared staging.
+__device__ __forceinline__ void encode_block(
+    const uint8_t* __restrict__ src, long long rem, int prob_bits,
+    const uint32_t* e1s, const uint32_t* magics, uint8_t* sy,
+    uint16_t* __restrict__ out, uint32_t* __restrict__ count_out,
+    uint32_t* __restrict__ state_out, int lane) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  uint4* d4 = reinterpret_cast<uint4*>(sy);
+  for (int i = lane; i < kBlockBytes / 16; i += kLanes) d4[i] = s4[i];
   __syncwarp();
 
-  const long long rem = length - b * kBlockBytes;
   const int nvalid = rem <= 0 ? 0 : (rem >= kBlockBytes ? kBlockBytes : (int)rem);
   const int steps = (nvalid + kLanes - 1) / kLanes;
   const uint32_t check_shift = 31u - (uint32_t)prob_bits;
   const uint32_t lanes_below = (1u << lane) - 1u;
-  uint16_t* out = staged + b * kMaxWords;
 
   uint32_t state = kStartState;
   uint32_t count = 0;
   for (int s = 0; s < steps; ++s) {
     const int i = s * kLanes + lane;
     const bool v = i < nvalid;
-    const uint32_t sym = syms[warp][i];
+    const uint32_t sym = sy[i];
     const uint32_t e1 = e1s[sym];
     const uint32_t cdf = e1 & 0xfffu;
     const uint32_t pdf = (e1 >> 12) & 0xfffu;
@@ -95,8 +100,51 @@ encode_kernel(const uint8_t* __restrict__ data, long long nblocks,
       state = (div << prob_bits) + mod + cdf;
     }
   }
-  states[b * kLanes + lane] = state;
-  if (lane == 0) counts[b] = count;
+  state_out[lane] = state;
+  if (lane == 0) *count_out = count;
+}
+
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+encode_kernel(const uint8_t* __restrict__ data, long long nblocks,
+              long long length, int prob_bits,
+              const uint32_t* __restrict__ table,
+              uint16_t* __restrict__ staged, uint32_t* __restrict__ counts,
+              uint32_t* __restrict__ states) {
+  __shared__ uint32_t e1s[256];
+  __shared__ uint32_t magics[256];
+  __shared__ __align__(16) uint8_t syms[kWarpsPerCta][kBlockBytes];
+  load_table(table, e1s, magics);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long b = (long long)blockIdx.x * kWarpsPerCta + warp;
+  if (b >= nblocks) return;
+  encode_block(data + b * kBlockBytes, length - b * kBlockBytes, prob_bits,
+               e1s, magics, syms[warp], staged + b * kMaxWords, counts + b,
+               states + b * kLanes, lane);
+}
+
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+encode_batched_kernel(const uint8_t* __restrict__ data, long long nbm,
+                      const long long* __restrict__ lengths, int prob_bits,
+                      const uint32_t* __restrict__ tables,
+                      uint16_t* __restrict__ staged,
+                      uint32_t* __restrict__ counts,
+                      uint32_t* __restrict__ states) {
+  __shared__ uint32_t e1s[256];
+  __shared__ uint32_t magics[256];
+  __shared__ __align__(16) uint8_t syms[kWarpsPerCta][kBlockBytes];
+  const long long m = blockIdx.y;
+  load_table(tables + m * kTableWords, e1s, magics);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long b = (long long)blockIdx.x * kWarpsPerCta + warp;
+  if (b >= nbm) return;
+  const long long row = m * nbm + b;
+  encode_block(data + row * kBlockBytes, lengths[m] - b * kBlockBytes,
+               prob_bits, e1s, magics, syms[warp], staged + row * kMaxWords,
+               counts + row, states + row * kLanes, lane);
 }
 
 }  // namespace
@@ -115,6 +163,27 @@ extern "C" int dtt_encode(const void* data, long long nblocks,
                     (cudaStream_t)stream>>>(
         static_cast<const uint8_t*>(data), nblocks, length, prob_bits,
         static_cast<const uint32_t*>(table), static_cast<uint16_t*>(staged),
+        static_cast<uint32_t*>(counts), static_cast<uint32_t*>(states));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The batched form: data is `batch` rows of nbm * 4096 bytes; lengths is
+// `batch` int64 symbol counts; tables is `batch` rows of 512 u32. staged,
+// counts and states hold batch * nbm rows, member m's block b at row
+// m * nbm + b.
+extern "C" int dtt_encode_batched(const void* data, long long batch,
+                                  long long nbm, const void* lengths,
+                                  int prob_bits, const void* tables,
+                                  void* staged, void* counts, void* states,
+                                  void* stream) {
+  const long long gx = (nbm + kWarpsPerCta - 1) / kWarpsPerCta;
+  if (gx > 0 && batch > 0) {
+    encode_batched_kernel<<<dim3((unsigned)gx, (unsigned)batch),
+                            kWarpsPerCta * 32, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint8_t*>(data), nbm,
+        static_cast<const long long*>(lengths), prob_bits,
+        static_cast<const uint32_t*>(tables), static_cast<uint16_t*>(staged),
         static_cast<uint32_t*>(counts), static_cast<uint32_t*>(states));
   }
   return (int)cudaGetLastError();

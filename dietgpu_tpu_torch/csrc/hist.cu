@@ -20,6 +20,11 @@
 // result is the same). The checksum XORs each word masked to its bytes
 // below `length` into a per-thread register, folded by warp shuffles and
 // merged with one atomicXor per warp (the 8-bit fold is linear over XOR).
+//
+// Batched (the vmapped histogram_u8_pallas of the TPU path's one-grid batch
+// encode): grid y is the member. Member m reads row m of the bytes, up to
+// its own length from a device array, and counts into histogram row m and
+// checksum m.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,10 +42,19 @@ __device__ __forceinline__ uint32_t fold8(uint32_t x) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint4* __restrict__ data, long long n_quad,
-            long long length, unsigned* __restrict__ hist,
-            unsigned* __restrict__ cks) {
+hist_kernel(const uint32_t* __restrict__ data_all, long long row_quads,
+            long long length_all, const long long* __restrict__ lengths,
+            unsigned* __restrict__ hist_all, unsigned* __restrict__ cks_all,
+            long long stride32) {
   __shared__ unsigned sh[kWarps][256];
+  const long long m = blockIdx.y;
+  const uint4* __restrict__ data =
+      reinterpret_cast<const uint4*>(data_all + m * stride32);
+  const long long length = lengths == nullptr ? length_all : lengths[m];
+  long long n_quad = (length + 15) / 16;
+  if (n_quad > row_quads) n_quad = row_quads;
+  unsigned* __restrict__ hist = hist_all + 256 * m;
+  unsigned* __restrict__ cks = cks_all == nullptr ? nullptr : cks_all + m;
   for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
     (&sh[0][0])[i] = 0;
   }
@@ -92,6 +106,26 @@ hist_kernel(const uint4* __restrict__ data, long long n_quad,
   }
 }
 
+int launch_hist(const void* data, long long batch, long long row_quads,
+                long long length, const void* lengths, void* hist, void* cks,
+                long long stride32, void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
+  int dev = 0;
+  int sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (row_quads + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * 8 / batch;  // one wave in all
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  hist_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
+                (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(data), row_quads, length,
+      static_cast<const long long*>(lengths), static_cast<unsigned*>(hist),
+      static_cast<unsigned*>(cks), stride32);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // data: n_quad * 16 bytes (16-byte aligned) holding at least the first
@@ -100,16 +134,16 @@ hist_kernel(const uint4* __restrict__ data, long long n_quad,
 // checksum is wanted.
 extern "C" int dtt_hist(const void* data, long long n_quad, long long length,
                         void* hist, void* cks, void* stream) {
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (n_quad + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  hist_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(data), n_quad, length,
-      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks));
-  return (int)cudaGetLastError();
+  return launch_hist(data, 1, n_quad, length, nullptr, hist, cks, 0, stream);
+}
+
+// The batched form: `batch` rows of row_quads * 16 bytes at a stride of
+// stride32 u32 (a multiple of 4); member m counts its first lengths[m]
+// bytes (int64, <= 16 row_quads) into hist + 256 m and cks + m.
+extern "C" int dtt_hist_batched(const void* data, long long batch,
+                                long long row_quads, const void* lengths,
+                                void* hist, void* cks, long long stride32,
+                                void* stream) {
+  return launch_hist(data, batch, row_quads, 0, lengths, hist, cks, stride32,
+                     stream);
 }

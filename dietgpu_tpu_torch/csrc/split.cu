@@ -19,6 +19,12 @@
 // checksum is a per-thread register folded by warp shuffles and merged into
 // global memory with one atomicXor per warp (the 8-bit fold is linear over
 // XOR, so folding before merging is exact).
+//
+// Batched (the vmapped split_words_pallas of float_compress_batched_pallas):
+// grid y is the member. Member m reads row m of the word pairs, writes row m
+// of the exponent plane and its nonComp plane into row m of the caller's
+// buffer (the members' containers), and counts into histogram row m and
+// checksum m. Every member has the same static length, as in the TPU path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,11 +42,19 @@ __device__ __forceinline__ uint32_t fold8(uint32_t x) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-split_kernel(const uint4* __restrict__ pairs, long long n_oct,
-             long long length, int bf16, uint2* __restrict__ exp_out,
-             uint2* __restrict__ nc_out, unsigned* __restrict__ hist,
-             unsigned* __restrict__ cks) {
+split_kernel(const uint32_t* __restrict__ pairs_all, long long n_oct,
+             long long length, int bf16, uint32_t* __restrict__ exp_all,
+             uint32_t* __restrict__ nc_all, unsigned* __restrict__ hist_all,
+             unsigned* __restrict__ cks_all, long long in_stride32,
+             long long exp_stride32, long long nc_stride32) {
   __shared__ unsigned sh[kWarps][256];
+  const long long m = blockIdx.y;
+  const uint4* __restrict__ pairs =
+      reinterpret_cast<const uint4*>(pairs_all + m * in_stride32);
+  uint2* __restrict__ exp_out = reinterpret_cast<uint2*>(exp_all + m * exp_stride32);
+  uint2* __restrict__ nc_out = reinterpret_cast<uint2*>(nc_all + m * nc_stride32);
+  unsigned* __restrict__ hist = hist_all + 256 * m;
+  unsigned* __restrict__ cks = cks_all == nullptr ? nullptr : cks_all + m;
   for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
     (&sh[0][0])[i] = 0;
   }
@@ -59,7 +73,7 @@ split_kernel(const uint4* __restrict__ pairs, long long n_oct,
     const uint4 p = in ? pairs[o] : make_uint4(0, 0, 0, 0);
     const uint32_t pw[4] = {p.x, p.y, p.z, p.w};
     uint32_t e[2] = {0, 0};
-    uint32_t m[2] = {0, 0};
+    uint32_t nc[2] = {0, 0};
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       uint32_t w = (pw[k >> 1] >> (16 * (k & 1))) & 0xffffu;
@@ -69,7 +83,7 @@ split_kernel(const uint4* __restrict__ pairs, long long n_oct,
       if (bf16) w = ((w << 1) | (w >> 15)) & 0xffffu;
       const uint32_t c = w >> 8;
       e[k >> 2] |= c << (8 * (k & 3));
-      m[k >> 2] |= (w & 0xffu) << (8 * (k & 3));
+      nc[k >> 2] |= (w & 0xffu) << (8 * (k & 3));
       const uint32_t key = valid ? c : kNoSymbol;
       const unsigned peers = __match_any_sync(0xffffffffu, key);
       if (key != kNoSymbol && lane == __ffs(peers) - 1) {
@@ -78,7 +92,7 @@ split_kernel(const uint4* __restrict__ pairs, long long n_oct,
     }
     if (in) {
       exp_out[o] = make_uint2(e[0], e[1]);
-      nc_out[o] = make_uint2(m[0], m[1]);
+      nc_out[o] = make_uint2(nc[0], nc[1]);
     }
   }
   __syncthreads();
@@ -96,6 +110,28 @@ split_kernel(const uint4* __restrict__ pairs, long long n_oct,
   }
 }
 
+int launch_split(const void* pairs, long long batch, long long n_oct,
+                 long long length, int bf16, void* exp_out, void* nc_out,
+                 void* hist, void* cks, long long in_stride32,
+                 long long exp_stride32, long long nc_stride32, void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
+  int dev = 0;
+  int sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (n_oct + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * 8 / batch;  // one wave in all
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  split_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
+                 (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(pairs), n_oct, length, bf16,
+      static_cast<uint32_t*>(exp_out), static_cast<uint32_t*>(nc_out),
+      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32,
+      exp_stride32, nc_stride32);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // pairs: n_oct * 4 u32 word pairs (16-byte aligned); words at index >=
@@ -105,17 +141,20 @@ split_kernel(const uint4* __restrict__ pairs, long long n_oct,
 extern "C" int dtt_split(const void* pairs, long long n_oct, long long length,
                          int bf16, void* exp_out, void* nc_out, void* hist,
                          void* cks, void* stream) {
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (n_oct + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  split_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(pairs), n_oct, length, bf16,
-      static_cast<uint2*>(exp_out), static_cast<uint2*>(nc_out),
-      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks));
-  return (int)cudaGetLastError();
+  return launch_split(pairs, 1, n_oct, length, bf16, exp_out, nc_out, hist,
+                      cks, 0, 0, 0, stream);
+}
+
+// The batched form: `batch` members, each as above, member m's pairs,
+// exponent plane and nonComp plane at u32 m * in_stride32, m * exp_stride32
+// and m * nc_stride32 (rows keeping the alignments above), its histogram at
+// hist + 256 m and its checksum at cks + m.
+extern "C" int dtt_split_batched(const void* pairs, long long batch,
+                                 long long n_oct, long long length, int bf16,
+                                 void* exp_out, void* nc_out, void* hist,
+                                 void* cks, long long in_stride32,
+                                 long long exp_stride32, long long nc_stride32,
+                                 void* stream) {
+  return launch_split(pairs, batch, n_oct, length, bf16, exp_out, nc_out, hist,
+                      cks, in_stride32, exp_stride32, nc_stride32, stream);
 }

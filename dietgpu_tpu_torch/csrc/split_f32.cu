@@ -25,6 +25,13 @@
 // data fall in a handful of values. Masked words are not counted. The XOR
 // checksum of the words is a per-thread register folded by warp shuffles
 // and merged with one atomicXor per warp.
+//
+// Batched (the vmapped split_words_pallas_f32 of
+// float_compress_batched_pallas): grid y is the member. Member m reads row m
+// of the words, writes row m of the exponent plane, its low and high planes
+// into row m of the caller's buffer (the members' containers), each still
+// stopping at its archived length, and counts into histogram row m and
+// checksum m. Every member has the same static length, as in the TPU path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,12 +49,22 @@ __device__ __forceinline__ uint32_t fold8(uint32_t x) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-split_f32_kernel(const uint4* __restrict__ words, long long n_quad,
-                 long long length, uint32_t* __restrict__ exp_out,
-                 uint2* __restrict__ lo_out, long long lo_quads,
-                 uint32_t* __restrict__ hi_out, long long hi_quads,
-                 unsigned* __restrict__ hist, unsigned* __restrict__ cks) {
+split_f32_kernel(const uint32_t* __restrict__ words_all, long long n_quad,
+                 long long length, uint32_t* __restrict__ exp_all,
+                 uint32_t* __restrict__ lo_all, long long lo_quads,
+                 uint32_t* __restrict__ hi_all, long long hi_quads,
+                 unsigned* __restrict__ hist_all, unsigned* __restrict__ cks_all,
+                 long long in_stride32, long long exp_stride32,
+                 long long plane_stride32) {
   __shared__ unsigned sh[kWarps][256];
+  const long long m = blockIdx.y;
+  const uint4* __restrict__ words =
+      reinterpret_cast<const uint4*>(words_all + m * in_stride32);
+  uint32_t* __restrict__ exp_out = exp_all + m * exp_stride32;
+  uint2* __restrict__ lo_out = reinterpret_cast<uint2*>(lo_all + m * plane_stride32);
+  uint32_t* __restrict__ hi_out = hi_all + m * plane_stride32;
+  unsigned* __restrict__ hist = hist_all + 256 * m;
+  unsigned* __restrict__ cks = cks_all == nullptr ? nullptr : cks_all + m;
   for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
     (&sh[0][0])[i] = 0;
   }
@@ -105,6 +122,31 @@ split_f32_kernel(const uint4* __restrict__ words, long long n_quad,
   }
 }
 
+int launch_split_f32(const void* words, long long batch, long long n_quad,
+                     long long length, void* exp_out, void* lo_out,
+                     long long lo_quads, void* hi_out, long long hi_quads,
+                     void* hist, void* cks, long long in_stride32,
+                     long long exp_stride32, long long plane_stride32,
+                     void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
+  int dev = 0;
+  int sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (n_quad + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * 8 / batch;  // one wave in all
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  split_f32_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(words), n_quad, length,
+      static_cast<uint32_t*>(exp_out), static_cast<uint32_t*>(lo_out),
+      lo_quads, static_cast<uint32_t*>(hi_out), hi_quads,
+      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32,
+      exp_stride32, plane_stride32);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // words: n_quad * 4 u32 f32 words (16-byte aligned); words at index >=
@@ -118,18 +160,24 @@ extern "C" int dtt_split_f32(const void* words, long long n_quad,
                              long long lo_quads, void* hi_out,
                              long long hi_quads, void* hist, void* cks,
                              void* stream) {
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (n_quad + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  split_f32_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(words), n_quad, length,
-      static_cast<uint32_t*>(exp_out), static_cast<uint2*>(lo_out), lo_quads,
-      static_cast<uint32_t*>(hi_out), hi_quads, static_cast<unsigned*>(hist),
-      static_cast<unsigned*>(cks));
-  return (int)cudaGetLastError();
+  return launch_split_f32(words, 1, n_quad, length, exp_out, lo_out, lo_quads,
+                          hi_out, hi_quads, hist, cks, 0, 0, 0, stream);
+}
+
+// The batched form: `batch` members, each as above, member m's words and
+// exponent plane at u32 m * in_stride32 and m * exp_stride32, its low and
+// high planes at u32 m * plane_stride32 from lo_out and hi_out (rows keeping
+// the alignments above), its histogram at hist + 256 m and its checksum at
+// cks + m.
+extern "C" int dtt_split_f32_batched(const void* words, long long batch,
+                                     long long n_quad, long long length,
+                                     void* exp_out, void* lo_out,
+                                     long long lo_quads, void* hi_out,
+                                     long long hi_quads, void* hist, void* cks,
+                                     long long in_stride32,
+                                     long long exp_stride32,
+                                     long long plane_stride32, void* stream) {
+  return launch_split_f32(words, batch, n_quad, length, exp_out, lo_out,
+                          lo_quads, hi_out, hi_quads, hist, cks, in_stride32,
+                          exp_stride32, plane_stride32, stream);
 }

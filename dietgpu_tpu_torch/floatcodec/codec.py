@@ -19,6 +19,8 @@ one fused decode+join kernel on the container. Tensors on the card go
 through the kernels, tensors on the CPU through their plain versions;
 nothing else selects the path. float_compress_padded_plain is the plain
 pipeline on any device, the reference for the kernel path.
+float_compress_batched and float_decompress_batched do the same for B
+members, rows of one buffer, with one launch of each kernel.
 """
 
 import torch
@@ -172,6 +174,145 @@ def float_decompress_padded(
     checksum_ok = torch.ones((), dtype=torch.bool, device=archive.device)
     if verify_checksum:
         opts, stored = layout.to_u32(archive[2:4]).unbind()
+        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
+    return {
+        "out32": out32,
+        "size": size,
+        "success": success,
+        "checksum_ok": checksum_ok,
+    }
+
+
+# ---- batched: B members of one static length, one launch per kernel ----
+
+
+def float_compress_batched(
+    words: torch.Tensor,
+    length: int,
+    float_type: int,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+):
+    """Compress B float tensors of one static length, each with its own
+    probability table, with one launch of each kernel whatever B is.
+
+    Counterpart of
+    ``dietgpu_tpu.floatcodec.pallas_codec.float_compress_batched_pallas``.
+    `words` is (B, Lw/2) int32 word pairs or (B, Lw) int16/uint16 words for
+    f16/bf16, (B, Lw) int32 words or float32 values for f32; Lw a positive
+    multiple of 4096. `length` is every member's word count, an int in
+    [0, Lw].
+
+    Returns (archives (B, F/4) int32, sizes (B,) int64 bytes), F =
+    float_archive_buffer_bytes(float_type, Lw): row m is member m's
+    container, laid out as :func:`float_compress_padded` lays out one, and
+    its bytes [0, sizes[m]) equal the JAX package's archive for member m.
+    The split kernel writes the raw planes straight into the rows, and the
+    batched assembly the payloads; the torch ops between the kernels are
+    the same few whatever B is.
+    """
+    return _compress_batched(
+        words, length, float_type, prob_bits, use_checksum, plain=not words.is_cuda
+    )
+
+
+def float_compress_batched_plain(
+    words: torch.Tensor,
+    length: int,
+    float_type: int,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+):
+    """:func:`float_compress_batched` through every kernel's plain version,
+    on the device of `words`: the reference the chip check holds the
+    batched kernels against on the card."""
+    return _compress_batched(words, length, float_type, prob_bits, use_checksum, plain=True)
+
+
+def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain):
+    if float_type not in cuda_decode.FLOAT_TYPES:
+        raise ValueError(f"float type {float_type} is not f16/bf16/f32")
+    if prob_bits not in C.SUPPORTED_PROB_BITS:
+        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
+    if not isinstance(length, int):
+        raise ValueError("batched float compress needs one static length (an int)")
+    if words.dim() != 2 or words.shape[0] == 0 or not words.is_contiguous():
+        raise ValueError("float codec: a batch is a contiguous (B, ...) tensor of words, B > 0")
+    words = _as_words(words.view(-1), float_type).view(words.shape[0], -1)
+    B = words.shape[0]
+    dev = words.device
+    f32 = float_type == C.FLOAT_TYPE_FLOAT32
+    Lw = words.shape[1] if f32 else 2 * words.shape[1]
+    arcs = torch.empty(
+        (B, float_archive_buffer_bytes(float_type, Lw) // 4), dtype=torch.int32, device=dev
+    )
+    if f32:
+        split_fn = (
+            cuda_float.split_words_f32_batched_plain if plain
+            else cuda_float.split_words_f32_batched_cuda
+        )
+        hi_base = 4 + C.round_up(length, 8) // 2
+        exp32, _, _, hist, cks = split_fn(
+            words, length, use_checksum,
+            lo_out=arcs[:, 4 : 4 + Lw // 2], hi_out=arcs[:, hi_base : hi_base + Lw // 4],
+        )
+        base = hi_base + C.round_up(length, 16) // 4
+    else:
+        split_fn = (
+            cuda_float.split_words_batched_plain if plain
+            else cuda_float.split_words_batched_cuda
+        )
+        exp32, _, hist, cks = split_fn(
+            words, length, float_type, use_checksum, nc_out=arcs[:, 4 : 4 + Lw // 4],
+        )
+        base = 4 + C.round_up(length, 16) // 4
+    pdfs = stats.normalize_probs(hist, length, prob_bits)
+
+    header = torch.tensor(
+        [(C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION, length,
+         (float_type & 0xF) | (int(use_checksum) << 4), 0],
+        dtype=torch.int64, device=dev,
+    ).repeat(B, 1)
+    if use_checksum:
+        header[:, 3] = cks
+    arcs[:, :4] = layout.to_i32(header)
+
+    ans_sizes = cuda_encode.ans_encode_batched_into(
+        arcs, base, exp32, [length] * B, prob_bits, pdfs, plain=plain
+    )
+    return arcs, ans_sizes + 4 * base
+
+
+def float_decompress_batched(
+    archives: torch.Tensor,
+    float_type: int,
+    out_max_words: int,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+    verify_checksum: bool = False,
+    static_length: int | None = None,
+):
+    """Decompress B float containers, rows of `archives` ((B, F/4) int32),
+    with one launch of the decode kernel.
+
+    Counterpart of
+    ``dietgpu_tpu.floatcodec.pallas_codec.float_decompress_batched_pallas``.
+    The row length is the member stride, and nothing past a member's row is
+    read, so a lying header fails only its own member. Members may hold
+    ragged word counts, each read from its own header on the device;
+    `static_length` is the same contract as in
+    :func:`float_decompress_padded`, for every member.
+
+    Returns the dict of :func:`float_decompress_padded` with a leading (B,)
+    dim: out32 ((B, out_max_words/2) int32 word pairs for f16/bf16, (B,
+    out_max_words) int32 words for f32), size, success, checksum_ok.
+    """
+    out32, success, size, digest = cuda_decode.decode_float_batched(
+        archives, float_type, out_max_words, prob_bits, static_length,
+        with_digest=verify_checksum,
+    )
+    checksum_ok = torch.ones(archives.shape[0], dtype=torch.bool, device=archives.device)
+    if verify_checksum:
+        opts, stored = layout.to_u32(archives[:, 2:4]).unbind(1)
         checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
     return {
         "out32": out32,

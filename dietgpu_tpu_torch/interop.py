@@ -7,7 +7,12 @@ written by either package decodes in the other:
 - float words: uint16 words or uint32 word pairs <-> int16 / int32;
 - archives: uint8 bytes (the XLA codecs) or uint32 words (the Pallas
   codecs) <-> the port's int32 u32 buffers;
-- a quantized pdf (256 u32) <-> int64.
+- a quantized pdf (256 u32) <-> int64;
+- batches: B archives, each at the start of its own row, <-> one (B, R)
+  int32 buffer (the port's batched layout, R u32 per member), so the
+  same archives can be laid out at each package's member stride.
+
+The word helpers take a (B, ...) batch as they take one tensor.
 """
 
 import numpy as np
@@ -68,3 +73,26 @@ def pdf_from_numpy(pdf: np.ndarray, device="cpu") -> torch.Tensor:
 def pdf_to_numpy(pdf: torch.Tensor) -> np.ndarray:
     """(256,) pdf tensor -> uint32 numpy array."""
     return (layout.to_u32(pdf.detach().cpu())).numpy().astype(np.uint32)
+
+
+def archives_batch_from_numpy(arcs, stride32=None, device="cpu") -> torch.Tensor:
+    """B archives (a sequence of 1-D uint8 or uint32 arrays, or the rows of
+    a 2-D one) -> (B, stride32) int32, archive m at the start of row m and
+    zeros after it. `stride32` defaults to the longest archive in u32,
+    rounded up to a multiple of 4 (16 bytes, the batched kernels' row
+    alignment)."""
+    rows = [archive_from_numpy(a).numpy() for a in arcs]
+    if stride32 is None:
+        stride32 = -(-max(r.size for r in rows) // 4) * 4
+    out = np.zeros((len(rows), stride32), np.int32)
+    for m, r in enumerate(rows):
+        if r.size > stride32:
+            raise ValueError(f"archives_batch_from_numpy: archive {m} is longer than the stride")
+        out[m, : r.size] = r
+    return torch.from_numpy(out).to(device)
+
+
+def archives_batch_to_numpy(arcs32: torch.Tensor, sizes) -> list:
+    """(B, R) int32 rows -> B uint8 arrays, row m's first sizes[m] bytes."""
+    arcs32 = arcs32.detach().cpu().contiguous()
+    return [archive_to_numpy(a, int(s)) for a, s in zip(arcs32, sizes)]

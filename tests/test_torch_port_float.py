@@ -152,7 +152,9 @@ def test_convenience_entry_points_cpu(monkeypatch):
         port.float_decompress(arc)
     assert set(port.kernel_launches()) == {
         "split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
-        "decode_raw",
+        "decode_raw", "split_batched", "split_f32_batched", "hist_batched",
+        "encode_batched", "assembly_batched", "decode_batched", "decode_f32_batched",
+        "decode_raw_batched",
     }
 
 

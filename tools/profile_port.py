@@ -4,34 +4,137 @@
 With ``dietgpu_tpu_torch``, prob_bits 10, no checksum: path A compresses
 and decompresses 128Mi bf16 words (made as bench.py makes them), path B
 128Mi f32 words (standard normal), path C encodes and decodes 2^28
-exponential bytes (as benchmarks/sweep.py makes them). For each call it
+exponential bytes (as benchmarks/sweep.py makes them); the batched paths
+D (128 bf16 members of 512Ki words), E (the same in f32) and F (64 raw
+members of 1-4 MiB, ragged) as chip_smoke.py makes them. For each call it
 reports:
 
 - wall: CUDA-event time of the call, synchronised, averaged;
 - enqueue: host time until the call returns, before synchronising;
 - device busy: the sum of kernel times that torch.profiler records over
   the same calls, and the idle share 1 - busy / wall;
-- the operations that take the most device time, and the number of
-  kernels launched per call.
+- the operations that take the most device time, the number of kernels
+  (device events, copies included) and of top-level torch ops launched per
+  call.
+
+The batched compress calls of D and F also run at B = 2 (their first two
+members): their kernels and torch ops per call must not depend on B.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_port.py
+    python3 tools/profile_port.py --against OTHER_ROOT [--rounds N]
 
 Prints readable lines, then one JSON line with the numbers.
+
+With ``--against``, it profiles nothing and instead times the single-tensor
+calls of two checkouts in turns: OTHER, THIS, THIS, OTHER (N times over),
+each in its own process on the one card, each building its own kernels into
+its own ``build/``. A run gives the CUDA-event ms of a compress and a
+decompress on paths A, B and C (inputs made as chip_smoke.py makes them,
+20 calls each); two versions are compared only within one such run.
 """
 
+import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 MWORDS = 128  # bench.py's size, Mi words
+BATCH, MEMBER_WORDS = 128, 1 << 19  # paths D and E
+RAW_MEMBERS, RAW_CAP = 64, 1 << 22  # path F
 ITERS = 10
 
 
+# one timed run of a checkout's single-tensor calls, in a process of its own
+_AB_CHILD = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import dietgpu_tpu_torch as port
+from dietgpu_tpu_torch import _build
+
+_build.build_all()
+n = 128 << 20
+x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+bf16 = torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16).view(np.int32)).cuda()
+f32 = torch.from_numpy(x.view(np.int32)).cuda()
+raw = torch.from_numpy(
+    np.minimum(np.random.default_rng(0).exponential(30, 1 << 28), 255).astype(np.uint8)).cuda()
+del x
+
+
+def ms(fn, iters=20):
+    for _ in range(2):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+out = {}
+for name, ft, w in (("A", 2, bf16), ("B", 3, f32)):
+    arc, _ = port.float_compress_padded(w, n, ft, 10, False)
+    out[name + " compress"] = ms(lambda: port.float_compress_padded(w, n, ft, 10, False))
+    out[name + " decompress"] = ms(
+        lambda: port.float_decompress_padded(arc, ft, n, 10, False, static_length=n))
+arc, _ = port.ans_encode_padded(raw, 1 << 28, 10, False)
+out["C compress"] = ms(lambda: port.ans_encode_padded(raw, 1 << 28, 10, False))
+out["C decompress"] = ms(lambda: port.ans_decode_padded(arc, 10, 1 << 28, False))
+print(json.dumps(out))
+"""
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def against(other, rounds):
+    """Time the single-tensor calls of `other` and of this checkout in turns."""
+    roots = {"other": str(Path(other).resolve()),
+             "this": str(Path(__file__).resolve().parent.parent)}
+    card = _card()
+    runs = []
+    for label in ("other", "this", "this", "other") * rounds:
+        res = subprocess.run([sys.executable, "-c", _AB_CHILD, roots[label]],
+                             capture_output=True, text=True, check=True)
+        times = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append({"tree": label, "ms": times})
+        print(f"# {label:5s} {roots[label]}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f" ms ({card})", flush=True)
+    medians = {
+        label: {k: statistics.median(r["ms"][k] for r in runs if r["tree"] == label)
+                for k in runs[0]["ms"]}
+        for label in roots
+    }
+    for label, m in medians.items():
+        print(f"# median of {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()) + " ms")
+    print(json.dumps({"card": card, "roots": roots, "runs": runs, "medians": medians}))
+    return 0
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="OTHER_ROOT",
+                    help="time the single-tensor calls of this checkout and OTHER_ROOT in turns")
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    if args.against:
+        return against(args.against, args.rounds)
+    return profile()
+
+
+def profile():
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -43,10 +146,7 @@ def main():
     import dietgpu_tpu_torch as port
     from dietgpu_tpu_torch import constants as C
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = _card()
     n = MWORDS * 1024 * 1024
     Lw = C.round_up(n, C.DEFAULT_BLOCK_SIZE)
     L = 1 << 28
@@ -63,6 +163,23 @@ def main():
     arc_f32, _ = port.float_compress_padded(words_f32, n, f32, 10, False)
     arc_raw, _ = port.ans_encode_padded(data, L, 10, False)
 
+    xb = np.random.default_rng(0).standard_normal((BATCH, MEMBER_WORDS)).astype(np.float32)
+    words_e = torch.from_numpy(xb.view(np.int32)).cuda()
+    words_d = (words_e >> 16).to(torch.int16).view(torch.int32)
+    del xb
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(RAW_CAP // 4, RAW_CAP + 1, RAW_MEMBERS).tolist()
+    data_f = torch.empty((RAW_MEMBERS, RAW_CAP), dtype=torch.uint8, device="cuda")
+    for m, k in enumerate(lengths):
+        row = np.minimum(rng.exponential(30, RAW_CAP), 255).astype(np.uint8)
+        row[k:] = 0
+        data_f[m] = torch.from_numpy(row)
+    Lm = MEMBER_WORDS
+    arcs_d, _ = port.float_compress_batched(words_d, Lm, bf16, 10, False)
+    arcs_e, _ = port.float_compress_batched(words_e, Lm, f32, 10, False)
+    arcs_f, _ = port.ans_encode_batched(data_f, lengths, None, 10, False)
+    words_d2, data_f2 = words_d[:2], data_f[:2]  # sliced here, not inside the profiled calls
+
     calls = {
         "compress": lambda: port.float_compress_padded(words, n, bf16, 10, False),
         "decompress": lambda: port.float_decompress_padded(
@@ -72,6 +189,16 @@ def main():
             arc_f32, f32, Lw, 10, False, static_length=n),
         "raw encode": lambda: port.ans_encode_padded(data, L, 10, False),
         "raw decode": lambda: port.ans_decode_padded(arc_raw, 10, L, False),
+        "D compress": lambda: port.float_compress_batched(words_d, Lm, bf16, 10, False),
+        "D compress B=2": lambda: port.float_compress_batched(words_d2, Lm, bf16, 10, False),
+        "D decompress": lambda: port.float_decompress_batched(
+            arcs_d, bf16, Lm, 10, False, static_length=Lm),
+        "E compress": lambda: port.float_compress_batched(words_e, Lm, f32, 10, False),
+        "E decompress": lambda: port.float_decompress_batched(
+            arcs_e, f32, Lm, 10, False, static_length=Lm),
+        "F encode": lambda: port.ans_encode_batched(data_f, lengths, None, 10, False),
+        "F encode B=2": lambda: port.ans_encode_batched(data_f2, lengths[:2], None, 10, False),
+        "F decode": lambda: port.ans_decode_batched(arcs_f, 10, RAW_CAP),
     }
     report = {"card": card, "n_words": n}
     for name, fn in calls.items():
@@ -99,6 +226,10 @@ def main():
             if str(getattr(e, "device_type", "")).endswith("CUDA")
         ]
         busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / ITERS
+        torch_ops = [
+            e for e in prof.events()
+            if e.cpu_parent is None and e.name.startswith("aten::")
+        ]
         by_name = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / ITERS
@@ -109,13 +240,47 @@ def main():
             "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
             "kernels_per_call": len(kernels) / ITERS,
+            "torch_ops_per_call": len(torch_ops) / ITERS,
             "top_device_ms": dict(top),
         }
         print(f"# {name}: wall {wall_ms:.4f} ms, host enqueue "
               f"{enqueue * 1e3 / ITERS:.4f} ms, device busy {busy_ms:.4f} ms, "
-              f"{len(kernels) / ITERS:.0f} kernels per call ({card})")
+              f"idle share {report[name]['idle_share']:.4f}, "
+              f"{len(kernels) / ITERS:.0f} kernels and {len(torch_ops) / ITERS:.0f} "
+              f"torch ops per call ({card})")
         for k, v in top:
             print(f"    {v:9.4f} ms  {k[:90]}")
+    # normalize_probs on a whole batch of histograms at the widest table:
+    # its extra device memory and time
+    from dietgpu_tpu_torch.ans import stats
+
+    h = torch.randint(0, 1 << 20, (BATCH, 256), device="cuda")
+    tot = h.sum(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    stats.normalize_probs(h, tot, 11)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        stats.normalize_probs(h, tot, 11)
+    end.record()
+    torch.cuda.synchronize()
+    report["normalize_probs B=128 pb 11"] = {
+        "peak_extra_bytes": peak, "ms": start.elapsed_time(end) / ITERS,
+    }
+    print(f"# normalize_probs, {BATCH} histograms, prob_bits 11: {peak} bytes of device "
+          f"memory past its inputs, {start.elapsed_time(end) / ITERS:.4f} ms ({card})")
+    for path, call in (("D", "D compress"), ("F", "F encode")):
+        per = [(report[c]["kernels_per_call"], report[c]["torch_ops_per_call"])
+               for c in (f"{call} B=2", call)]
+        report[f"{path} ops independent of B"] = per[0] == per[1]
+        print(f"# path {path}: kernels, torch ops per batched compress call: B=2 {per[0]}, "
+              f"B={BATCH if path == 'D' else RAW_MEMBERS} {per[1]}; "
+              f"{'the same' if per[0] == per[1] else 'DIFFERENT'}")
     print(json.dumps(report))
     return 0
 
