@@ -10,13 +10,15 @@ result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
                nvcc for sm_90a, all in parallel, into ``build/``;
-2. kernels  -- each of the sixteen kernels (eight single-tensor, eight
-               batched) against its plain torch version on the card,
-               bit-exact (tolerance 0: the codec is lossless and the
-               archive format fixed), at small and ragged shapes: for the
-               batched ones B = 1, members of one block and ragged raw
-               lengths; with a lying header and a corrupted payload for
-               each decode (in one member of a batch: only it may fail);
+2. kernels  -- each of the eight kernels (split, split_f32, hist, encode,
+               assembly, decode in three configurations; every one takes
+               a batch, a single tensor being a batch of one) against its
+               plain torch version on the card, bit-exact (tolerance 0:
+               the codec is lossless and the archive format fixed), at
+               small and ragged shapes: single tensors, B = 1, members of
+               one block and ragged raw lengths; with a lying header and a
+               corrupted payload for each decode (in one member of a
+               batch: only it may fail);
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -36,8 +38,8 @@ result line:
    path D   -- bf16 batch, 128 members of 512Ki words (128 MiB), prob_bits
                10, no checksum, one static length (benchmarks/sweep.py's
                batched scenario), through float_compress_batched /
-               float_decompress_batched: each batched kernel launched
-               exactly once per call, every member round-trips exactly, its
+               float_decompress_batched: each kernel launched exactly once
+               per call, every member round-trips exactly, its
                archive equals the batched plain pipeline's on the card and
                the single-tensor kernel path's, one checksummed call;
    path E   -- the same for an f32 batch of 128 x 512Ki words (256 MiB);
@@ -53,7 +55,11 @@ result line:
                copy_ of path A's bytes.
 
 Each path is driven with the launch counters set to 0 just before it and
-read just after; a kernel's `launches` is the count from its own path.
+read just after; a row's `launches` is its kernel's count from the row's
+path. The kernels line has a row for each kernel at each path's shapes
+that runs it: the single paths' rows (split ... decode_f32) and the batched
+paths' (split_batched ... decode_raw_batched), which are the same kernels
+at paths D-F's shapes.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
@@ -77,72 +83,72 @@ ITERS = 20  # timed iterations per measurement
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # 32-bit non-tensor peak (fp32 rate; int32 is not faster)
 
-# kernel -> (source, the TPU kernel it replaces, 32-bit ops per symbol/word,
-# the path whose launches it reports)
+# row -> (source, the TPU kernel it replaces, 32-bit ops per symbol/word,
+# the path whose shapes and launches it reports, the kernel's launch counter)
 KERNELS = {
     "split": (
         "dietgpu_tpu_torch/csrc/split.cu",
-        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "A",
+        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "A", "split",
     ),
     "encode": (
         "dietgpu_tpu_torch/csrc/encode.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:216", 16, "A",
+        "dietgpu_tpu/ans/pallas_encode.py:216", 16, "A", "encode",
     ),
     "assembly": (
         "dietgpu_tpu_torch/csrc/assembly.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:682", 0, "A",
+        "dietgpu_tpu/ans/pallas_encode.py:682", 0, "A", "assembly",
     ),
     "decode": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "A",
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "A", "decode",
     ),
     "hist": (
         "dietgpu_tpu_torch/csrc/hist.cu",
-        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "C",
+        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "C", "hist",
     ),
     "decode_raw": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "C",
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "C", "decode_raw",
     ),
     "split_f32": (
         "dietgpu_tpu_torch/csrc/split_f32.cu",
-        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "B",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "B", "split_f32",
     ),
     "decode_f32": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "B",
+        "dietgpu_tpu/ans/pallas_decode.py:121", 16, "B", "decode_f32",
     ),
     "split_batched": (
         "dietgpu_tpu_torch/csrc/split.cu",
-        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "D",
+        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "D", "split",
     ),
     "encode_batched": (
         "dietgpu_tpu_torch/csrc/encode.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:278", 16, "D",
+        "dietgpu_tpu/ans/pallas_encode.py:278", 16, "D", "encode",
     ),
     "assembly_batched": (
         "dietgpu_tpu_torch/csrc/assembly.cu",
-        "dietgpu_tpu/ans/pallas_encode.py:726", 0, "D",
+        "dietgpu_tpu/ans/pallas_encode.py:726", 0, "D", "assembly",
     ),
     "decode_batched": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "D",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "D", "decode",
     ),
     "split_f32_batched": (
         "dietgpu_tpu_torch/csrc/split_f32.cu",
-        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "E",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "E", "split_f32",
     ),
     "decode_f32_batched": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "E",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "E", "decode_f32",
     ),
     "hist_batched": (
         "dietgpu_tpu_torch/csrc/hist.cu",
-        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "F",
+        "dietgpu_tpu/ans/pallas_hist.py:86", 4, "F", "hist",
     ),
     "decode_raw_batched": (
         "dietgpu_tpu_torch/csrc/decode.cu",
-        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "F",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "F", "decode_raw",
     ),
 }
 # the kernels each path must launch
@@ -150,9 +156,9 @@ PATH_KERNELS = {
     "A": ("split", "encode", "assembly", "decode"),
     "B": ("split_f32", "encode", "assembly", "decode_f32"),
     "C": ("hist", "encode", "assembly", "decode_raw"),
-    "D": ("split_batched", "encode_batched", "assembly_batched", "decode_batched"),
-    "E": ("split_f32_batched", "encode_batched", "assembly_batched", "decode_f32_batched"),
-    "F": ("hist_batched", "encode_batched", "assembly_batched", "decode_raw_batched"),
+    "D": ("split", "encode", "assembly", "decode"),
+    "E": ("split_f32", "encode", "assembly", "decode_f32"),
+    "F": ("hist", "encode", "assembly", "decode_raw"),
 }
 # paths whose one compress and one decompress must launch each kernel once
 BATCHED_PATHS = ("D", "E", "F")
@@ -233,8 +239,13 @@ def drive(port, name, fn):
     for k in PATH_KERNELS[name]:
         require(launches[k] >= 1, f"kernel {k} was not launched on path {name}")
         if name in BATCHED_PATHS:
-            require(launches[k] == 1, f"batched kernel {k} launched {launches[k]} times in one call")
+            require(launches[k] == 1, f"kernel {k} launched {launches[k]} times in one batched call")
     return out, launches
+
+
+def one(outputs):
+    """Member 0 of each output of a call on a batch of one."""
+    return tuple(x[0] for x in outputs)
 
 
 def member_pairs(arcs, sizes, parcs, psizes):
@@ -265,13 +276,13 @@ def phase2_new_kernels(port, dev):
         for ck in (False, True):
             require_exact(
                 f"split_f32 n={n} ck={ck}",
-                zip(cuda_float.split_words_f32_cuda(words, n, ck),
+                zip(one(cuda_float.split_words_f32_batched_cuda(words[None], n, ck)),
                     cuda_float.split_words_f32_plain(words, n, ck)),
             )
     for n in (4 * Lw, 4 * Lw - 1, 4 * Lw - 12345, 4097, 3, 0):  # ends inside a word
         require_exact(
             f"hist length={n} ck=True",
-            zip(cuda_hist.histogram_u8_cuda(words, n, True),
+            zip(one(cuda_hist.histogram_u8_batched_cuda(words[None], [n], True)),
                 cuda_hist.histogram_u8_plain(words, n, True)),
         )
 
@@ -287,7 +298,7 @@ def phase2_new_kernels(port, dev):
             for digest in (False, True):
                 require_exact(
                     f"decode_f32 pb={pb} ck={ck} digest={digest}",
-                    zip(cuda_decode.decode_float_cuda(ka, F32, Lw, pb, n, digest),
+                    zip(cuda_decode.decode_float(ka, F32, Lw, pb, n, digest),
                         cuda_decode.decode_float_plain(ka, F32, Lw, pb, n, digest)),
                 )
             r = codec.float_decompress_padded(ka, F32, Lw, pb, ck, static_length=n)
@@ -296,7 +307,7 @@ def phase2_new_kernels(port, dev):
     # a lying header and a corrupted payload (ka: the last, checksummed archive)
     bad = ka.clone()
     bad[1] += 4096
-    for fn in (cuda_decode.decode_float_cuda, cuda_decode.decode_float_plain):
+    for fn in (cuda_decode.decode_float, cuda_decode.decode_float_plain):
         require(not bool(fn(bad, F32, Lw, pb)[1]), "a lying f32 header decoded with success")
     bad = ka.clone()
     bad[4 + 100] ^= 0x01000000  # a byte of the low plane
@@ -319,7 +330,7 @@ def phase2_new_kernels(port, dev):
             for digest in (False, True):
                 require_exact(
                     f"decode_raw pb={pb} ck={ck} digest={digest}",
-                    zip(cuda_decode.decode_raw_cuda(ka, pb, L, digest),
+                    zip(one(cuda_decode.decode_raw_batched_cuda(ka[None], pb, L, None, digest)),
                         cuda_decode.decode_raw_plain(ka, pb, L, digest)),
                 )
             r = port.ans_decode_padded(ka, pb, L, ck)
@@ -333,11 +344,12 @@ def phase2_new_kernels(port, dev):
     # differ past the archive's real sections
     bad = ka.clone()
     bad[2] = L + 1
-    for fn in (cuda_decode.decode_raw_cuda, cuda_decode.decode_raw_plain):
-        require(not bool(fn(bad, pb, L)[1]), "a lying raw header decoded with success")
+    for ok in (one(cuda_decode.decode_raw_batched_cuda(bad[None], pb, L))[1],
+               cuda_decode.decode_raw_plain(bad, pb, L)[1]):
+        require(not bool(ok), "a lying raw header decoded with success")
     bad = ka.clone()
     bad[1] = 0xFFFF
-    got = cuda_decode.decode_raw_cuda(bad, pb, L, True)
+    got = one(cuda_decode.decode_raw_batched_cuda(bad[None], pb, L, None, True))
     torch.cuda.synchronize()
     require(bool(got[1]) == bool(cuda_decode.decode_raw_plain(bad, pb, L)[1]),
             "a lying raw block count changed success")
@@ -350,9 +362,9 @@ def phase2_new_kernels(port, dev):
 
 
 def phase2_batched_kernels(port, dev):
-    """The eight batched kernels against their plain versions at small and
-    ragged batches: B = 1, members of one block, ragged raw lengths, a
-    lying header in one member and a corrupted payload in another."""
+    """The kernels against their plain versions on small and ragged
+    batches: B = 1, members of one block, ragged raw lengths, a lying
+    header in one member and a corrupted payload in another."""
     import numpy as np
     import torch
 
@@ -372,12 +384,12 @@ def phase2_batched_kernels(port, dev):
             for ck in (False, True):
                 for ft in (F16, BF16):
                     require_exact(
-                        f"split_batched B={B} ft={ft} n={n} ck={ck}",
+                        f"batched split B={B} ft={ft} n={n} ck={ck}",
                         zip(cuda_float.split_words_batched_cuda(pairs[:B], n, ft, ck),
                             cuda_float.split_words_batched_plain(pairs[:B], n, ft, ck)),
                     )
                 require_exact(
-                    f"split_f32_batched B={B} n={n} ck={ck}",
+                    f"batched split_f32 B={B} n={n} ck={ck}",
                     zip(cuda_float.split_words_f32_batched_cuda(words[:B], n, ck),
                         cuda_float.split_words_f32_batched_plain(words[:B], n, ck)),
                 )
@@ -386,7 +398,7 @@ def phase2_batched_kernels(port, dev):
                          generator=gen)
     for ck in (False, True):
         require_exact(
-            f"hist_batched lengths={lengths} ck={ck}",
+            f"batched hist lengths={lengths} ck={ck}",
             zip(cuda_hist.histogram_u8_batched_cuda(data, lengths, ck),
                 cuda_hist.histogram_u8_batched_plain(data, lengths, ck)),
         )
@@ -405,9 +417,10 @@ def phase2_batched_kernels(port, dev):
             for pb in C.SUPPORTED_PROB_BITS if ft == BF16 else (10,):
                 for ck in (False, True):
                     what = f"ft={ft} B={B} Lw={lw} n={n} pb={pb} ck={ck}"
+                    snb = cuda_decode.static_block_count(n, lw)
                     ka, ks = codec.float_compress_batched(wb, n, ft, pb, ck)
                     pa, ps = codec.float_compress_batched_plain(wb, n, ft, pb, ck)
-                    require_exact(f"encode_batched+assembly_batched {what}",
+                    require_exact(f"batched encode+assembly {what}",
                                   member_pairs(ka, ks, pa, ps))
                     single = [codec.float_compress_padded(wb[m], n, ft, pb, ck) for m in range(B)]
                     require_exact(f"  the same members through the single path {what}",
@@ -415,9 +428,11 @@ def phase2_batched_kernels(port, dev):
                                                torch.stack([s for _, s in single])))
                     for digest in (False, True):
                         require_exact(
-                            f"decode{'_f32' if ft == F32 else ''}_batched {what} digest={digest}",
-                            zip(cuda_decode.decode_float_batched_cuda(ka, ft, lw, pb, n, digest),
-                                cuda_decode.decode_float_batched_plain(ka, ft, lw, pb, n, digest)),
+                            f"batched decode{'_f32' if ft == F32 else ''} {what} digest={digest}",
+                            zip(cuda_decode.decode_float_batched_cuda(ka, ft, lw, pb, n, digest,
+                                                                      snb),
+                                cuda_decode.decode_float_batched_plain(ka, ft, lw, pb, n, digest,
+                                                                       snb)),
                         )
                     r = codec.float_decompress_batched(ka, ft, lw, pb, ck, static_length=n)
                     require(bool(r["success"].all()) and bool(r["checksum_ok"].all()),
@@ -457,7 +472,7 @@ def phase2_batched_kernels(port, dev):
                 what = f"lengths={lens} pb={pb} ck={ck}"
                 ka, ks = port.ans_encode_batched(db, lens, None, pb, ck)
                 pa, ps = cuda_encode.ans_encode_batched_plain(db, lens, None, pb, ck)
-                require_exact(f"hist_batched+encode_batched+assembly_batched {what}",
+                require_exact(f"batched hist+encode+assembly {what}",
                               member_pairs(ka, ks, pa, ps))
                 single = [port.ans_encode_padded(db[m], n, pb, ck) for m, n in enumerate(lens)]
                 require_exact(f"  the same members through the single path {what}",
@@ -465,7 +480,7 @@ def phase2_batched_kernels(port, dev):
                                            torch.stack([s for _, s in single])))
                 for digest in (False, True):
                     require_exact(
-                        f"decode_raw_batched {what} digest={digest}",
+                        f"batched decode_raw {what} digest={digest}",
                         zip(cuda_decode.decode_raw_batched_cuda(ka, pb, L, None, digest),
                             cuda_decode.decode_raw_batched_plain(ka, pb, L, None, digest)),
                     )
@@ -547,49 +562,51 @@ def float_batch_path(port, name, ft, words, err):
     err[split_k] = require_exact(f"{split_k}, path {name} shape",
                                  zip(ks, split_plain(*split_args)))
     dec_k = "decode_f32_batched" if f32 else "decode_batched"
+    snb = cuda_decode.static_block_count(n, Lw)
     e = 0
     for digest in (False, True):
         e = max(e, require_exact(
             f"{dec_k} digest={digest}, path {name} shape",
-            zip(cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n, digest),
-                cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n, digest)),
+            zip(cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n, digest, snb),
+                cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n, digest, snb)),
         ))
     err[dec_k] = e
     state = {
         "arcs": arcs, "sizes": sizes, "launches": launches, "single": [a for a, _ in single],
         "split": (lambda: split_cuda(*split_args), lambda: split_plain(*split_args)),
-        "decode": (lambda: cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n),
-                   lambda: cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n)),
+        "decode": (lambda: cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, n, False, snb),
+                   lambda: cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, n, False,
+                                                                  snb)),
     }
     if not f32:
         # the encode and assembly kernels at path D's shapes
         exp32 = ks[0]
         pdfs = stats.normalize_probs(ks[2], n, 10)
         tables = plain_encode.encode_table(pdfs)
-        lengths_t = torch.full((B,), n, dtype=torch.int64, device=words.device)
-        ke = cuda_encode.encode_blocks_batched_cuda(exp32, lengths_t, 10, tables)
-        pe = plain_encode.encode_blocks_batched(exp32, lengths_t, 10, tables)
+        ke = cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, tables)
+        pe = plain_encode.encode_blocks_batched(exp32, n, 10, tables)
         err["encode_batched"] = require_exact(
             f"encode_batched, path {name} shape",
             [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1]))
         del pe
         base32 = 4 + C.round_up(n, 16) // 4
         asm_k = torch.zeros_like(arcs)
-        prefix, _, ds32_t, _ = plain_encode.write_sections_batched(
+        prefix, ds32, _, _ = plain_encode.write_sections_batched(
             asm_k, base32, pdfs, ke[2], ke[1], [n] * B, 10)
+        ds = ds32[0]  # one payload offset for every member, as the path passes it
         asm_p = asm_k.clone()
-        cuda_encode.assemble_payload_batched_cuda(asm_k, ds32_t, ke[0], ke[1], prefix)
-        plain_encode.assemble_payload_batched(asm_p, ds32_t, ke[0], ke[1], prefix)
+        cuda_encode.assemble_payload_batched_cuda(asm_k, ds, ke[0], ke[1], prefix)
+        plain_encode.assemble_payload_batched(asm_p, ds, ke[0], ke[1], prefix)
         err["assembly_batched"] = require_exact(f"assembly_batched, path {name} shape",
                                                 [(asm_k, asm_p)])
         del asm_p
         counts = ke[1].long()
         state["encode"] = (
-            lambda: cuda_encode.encode_blocks_batched_cuda(exp32, lengths_t, 10, tables),
-            lambda: plain_encode.encode_blocks_batched(exp32, lengths_t, 10, tables))
+            lambda: cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, tables),
+            lambda: plain_encode.encode_blocks_batched(exp32, n, 10, tables))
         state["assembly"] = (
-            lambda: cuda_encode.assemble_payload_batched_cuda(asm_k, ds32_t, ke[0], ke[1], prefix),
-            lambda: plain_encode.assemble_payload_batched(asm_k, ds32_t, ke[0], ke[1], prefix))
+            lambda: cuda_encode.assemble_payload_batched_cuda(asm_k, ds, ke[0], ke[1], prefix),
+            lambda: plain_encode.assemble_payload_batched(asm_k, ds, ke[0], ke[1], prefix))
         state["emitted"] = int(counts.sum())
         state["padded_words"] = int(((counts + 7) // 8 * 8).clamp(max=2560).sum())
     torch.cuda.empty_cache()
@@ -715,7 +732,7 @@ def main():
         for n in (Lw, Lw - 12345):
             require_exact(
                 f"split ft={ft} n={n}",
-                zip(cuda_float.split_words_cuda(pairs, n, ft, True),
+                zip(one(cuda_float.split_words_batched_cuda(pairs[None], n, ft, True)),
                     cuda_float.split_words_plain(pairs, n, ft, True)),
             )
 
@@ -732,7 +749,7 @@ def main():
             for digest in (False, True):
                 require_exact(
                     f"decode ft={ft} n={n} digest={digest}",
-                    zip(cuda_decode.decode_float_cuda(ka, ft, Lw, 10, None, digest),
+                    zip(cuda_decode.decode_float(ka, ft, Lw, 10, None, digest),
                         cuda_decode.decode_float_plain(ka, ft, Lw, 10, None, digest)),
                 )
             r = codec.float_decompress_padded(ka, ft, Lw, 10, ck, static_length=n)
@@ -743,7 +760,7 @@ def main():
     # a lying header and a corrupted payload
     bad = ka.clone()
     bad[1] += 4096
-    for fn in (cuda_decode.decode_float_cuda, cuda_decode.decode_float_plain):
+    for fn in (cuda_decode.decode_float, cuda_decode.decode_float_plain):
         if bool(fn(bad, ft, Lw, 10)[1]):
             raise AssertionError("a lying header decoded with success")
     bad = ka.clone()
@@ -759,8 +776,8 @@ def main():
                                 data.numel(), 11)
     table = plain_encode.encode_table(pdf)
     d32 = layout.u8_to_u32le(data)
-    ke = cuda_encode.encode_blocks_cuda(d32, data.numel(), 11, table)
-    pe = plain_encode.encode_blocks(d32, data.numel(), 11, table)
+    ke = cuda_encode.encode_blocks_batched_cuda(d32[None], data.numel(), 11, table[None])
+    pe = plain_encode.encode_blocks_batched(d32[None], data.numel(), 11, table[None])
     if int(ke[1].max()) <= C.MAX_COMP_WORDS_PER_BLOCK:
         raise AssertionError("the overflow input did not overflow")
     require_exact("encode overflow block",
@@ -816,30 +833,32 @@ def main():
 
     # every kernel against its plain version at the main path's shapes
     pairs = inputs[0]
-    ks = cuda_float.split_words_cuda(pairs, n, ft)
+    ks = one(cuda_float.split_words_batched_cuda(pairs[None], n, ft))
     err = {"split": require_exact("split, main shape",
                                   zip(ks, cuda_float.split_words_plain(pairs, n, ft)))}
-    exp32 = ks[0]
+    exp32 = ks[0][None]
     pdf = stats.normalize_probs(ks[2], n, 10)
-    table = plain_encode.encode_table(pdf)
-    ke = cuda_encode.encode_blocks_cuda(exp32, n, 10, table)
-    pe = plain_encode.encode_blocks(exp32, n, 10, table)
+    table = plain_encode.encode_table(pdf)[None]
+    ke = cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, table)
+    pe = plain_encode.encode_blocks_batched(exp32, n, 10, table)
     err["encode"] = require_exact("encode, main shape",
                                   [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1]))
     del pe
     base32 = 4 + C.round_up(n, 16) // 4
-    asm_k = torch.zeros_like(arc)
-    prefix, ds32, asize = plain_encode.write_sections(asm_k, base32, pdf, ke[2], ke[1], n, 10)
+    asm_k = torch.zeros_like(arc)[None]
+    prefix, ds32, _, _ = plain_encode.write_sections_batched(
+        asm_k, base32, pdf[None], ke[2], ke[1], [n], 10)
+    ds32 = ds32[0]
     asm_p = asm_k.clone()
-    cuda_encode.assemble_payload_cuda(asm_k, ds32, ke[0], ke[1], prefix)
-    plain_encode.assemble_payload(asm_p, ds32, ke[0], ke[1], prefix)
+    cuda_encode.assemble_payload_batched_cuda(asm_k, ds32, ke[0], ke[1], prefix)
+    plain_encode.assemble_payload_batched(asm_p, ds32, ke[0], ke[1], prefix)
     err["assembly"] = require_exact("assembly, main shape", [(asm_k, asm_p)])
     del asm_p
     e4 = 0
     for digest in (False, True):
         e4 = max(e4, require_exact(
             f"decode digest={digest}, main shape",
-            zip(cuda_decode.decode_float_cuda(arc, ft, Lw, 10, n, digest),
+            zip(cuda_decode.decode_float(arc, ft, Lw, 10, n, digest),
                 cuda_decode.decode_float_plain(arc, ft, Lw, 10, n, digest)),
         ))
     err["decode"] = e4
@@ -884,7 +903,7 @@ def main():
             and torch.equal(r2["out32"], inputs_b[1]), "path B checksummed call failed")
     log("  checksummed call: roundtrip exact, checksum verified on decode")
     del a2, r2
-    kf = cuda_float.split_words_f32_cuda(inputs_b[0], n)
+    kf = one(cuda_float.split_words_f32_batched_cuda(inputs_b[0][None], n))
     err["split_f32"] = require_exact(
         "split_f32, main shape", zip(kf, cuda_float.split_words_f32_plain(inputs_b[0], n)))
     del kf
@@ -892,7 +911,7 @@ def main():
     for digest in (False, True):
         e8 = max(e8, require_exact(
             f"decode_f32 digest={digest}, main shape",
-            zip(cuda_decode.decode_float_cuda(arc_b, F32, Lw, 10, n, digest),
+            zip(cuda_decode.decode_float(arc_b, F32, Lw, 10, n, digest),
                 cuda_decode.decode_float_plain(arc_b, F32, Lw, 10, n, digest)),
         ))
     err["decode_f32"] = e8
@@ -937,14 +956,14 @@ def main():
     d32c = layout.u8_to_u32le(datas[0])
     err["hist"] = require_exact(
         "hist ck=True, main shape",
-        zip(cuda_hist.histogram_u8_cuda(d32c, L, True),
+        zip(one(cuda_hist.histogram_u8_batched_cuda(d32c[None], [L], True)),
             cuda_hist.histogram_u8_plain(d32c, L, True)),
     )
     e6 = 0
     for digest in (False, True):
         e6 = max(e6, require_exact(
             f"decode_raw digest={digest}, main shape",
-            zip(cuda_decode.decode_raw_cuda(arc_c, 10, L, digest),
+            zip(one(cuda_decode.decode_raw_batched_cuda(arc_c[None], 10, L, None, digest)),
                 cuda_decode.decode_raw_plain(arc_c, 10, L, digest)),
         ))
     err["decode_raw"] = e6
@@ -963,8 +982,8 @@ def main():
     launches = {}
     path_launches = {"A": launches_a, "B": launches_b, "C": launches_c,
                      **{p: st["launches"] for p, st in bat.items()}}
-    for k, (_, _, _, path) in KERNELS.items():
-        launches[k] = path_launches[path][k]
+    for k, (_, _, _, path, kernel) in KERNELS.items():
+        launches[k] = path_launches[path][kernel]
 
     # ---- 4. timing ----
     log(f"# phase 4: timing, {ITERS} iterations, CUDA events; card: {card}")
@@ -1091,21 +1110,22 @@ def main():
     }
     wb = inputs_b[0]
     runs = {
-        "split": (lambda: cuda_float.split_words_cuda(pairs, n, ft),
+        "split": (lambda: cuda_float.split_words_batched_cuda(pairs[None], n, ft),
                   lambda: cuda_float.split_words_plain(pairs, n, ft)),
-        "encode": (lambda: cuda_encode.encode_blocks_cuda(exp32, n, 10, table),
-                   lambda: plain_encode.encode_blocks(exp32, n, 10, table)),
-        "assembly": (lambda: cuda_encode.assemble_payload_cuda(asm_k, ds32, ke[0], ke[1], prefix),
-                     lambda: plain_encode.assemble_payload(asm_k, ds32, ke[0], ke[1], prefix)),
-        "decode": (lambda: cuda_decode.decode_float_cuda(arc, ft, Lw, 10, n),
+        "encode": (lambda: cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, table),
+                   lambda: plain_encode.encode_blocks_batched(exp32, n, 10, table)),
+        "assembly": (
+            lambda: cuda_encode.assemble_payload_batched_cuda(asm_k, ds32, ke[0], ke[1], prefix),
+            lambda: plain_encode.assemble_payload_batched(asm_k, ds32, ke[0], ke[1], prefix)),
+        "decode": (lambda: cuda_decode.decode_float(arc, ft, Lw, 10, n),
                    lambda: cuda_decode.decode_float_plain(arc, ft, Lw, 10, n)),
-        "hist": (lambda: cuda_hist.histogram_u8_cuda(d32c, L),
+        "hist": (lambda: cuda_hist.histogram_u8_batched_cuda(d32c[None], [L]),
                  lambda: cuda_hist.histogram_u8_plain(d32c, L)),
-        "decode_raw": (lambda: cuda_decode.decode_raw_cuda(arc_c, 10, L),
+        "decode_raw": (lambda: cuda_decode.decode_raw_batched_cuda(arc_c[None], 10, L),
                        lambda: cuda_decode.decode_raw_plain(arc_c, 10, L)),
-        "split_f32": (lambda: cuda_float.split_words_f32_cuda(wb, n),
+        "split_f32": (lambda: cuda_float.split_words_f32_batched_cuda(wb[None], n),
                       lambda: cuda_float.split_words_f32_plain(wb, n)),
-        "decode_f32": (lambda: cuda_decode.decode_float_cuda(arc_b, F32, Lw, 10, n),
+        "decode_f32": (lambda: cuda_decode.decode_float(arc_b, F32, Lw, 10, n),
                        lambda: cuda_decode.decode_float_plain(arc_b, F32, Lw, 10, n)),
         "split_batched": bat["D"]["split"],
         "encode_batched": bat["D"]["encode"],
@@ -1119,7 +1139,7 @@ def main():
     # one torch call computing the same function, where there is one
     library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}
     rows = []
-    for k, (source, replaces, ops_per, _) in KERNELS.items():
+    for k, (source, replaces, ops_per, _, _) in KERNELS.items():
         nbytes, nsym = work[k]
         ms = time_ms(runs[k][0], ITERS)
         plain_ms = time_ms(runs[k][1], 1, warmup=0)

@@ -6,9 +6,9 @@ root of the checkout, named by the hash of its source, then loaded with
 ctypes. All sources are compiled in parallel, one ``nvcc`` each. Nothing is
 built when the package is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
-decode kernel), each with its own C entry point; each source also has a
-batched entry point per kernel (``*_batched``), one launch for a whole
-batch of members, counted under its own name.
+decode kernel), each with its own C entry point. Every kernel takes a
+batch of members and is launched once for the whole batch; a single
+tensor is a batch of one.
 
 Every wrapper launches through :func:`launch`, which checks the returned
 ``cudaGetLastError()`` and counts the launch under the kernel's name;
@@ -38,44 +38,27 @@ _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 # kernel (one launch counter each) -> (source, C entry point, argument types
-# before the stream, which every entry point takes last)
+# before the stream, which every entry point takes last). Every entry point
+# takes a batch of members; a single tensor is a batch of one.
 _ENTRY = {
-    "split": ("split", "dtt_split", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP)),
+    "split": (
+        "split", "dtt_split", (_VP, _LL, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
+    ),
     "split_f32": (
-        "split_f32", "dtt_split_f32", (_VP, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP),
-    ),
-    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _VP, _VP)),
-    "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _INT, _VP, _VP, _VP, _VP)),
-    "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _VP, _LL)),
-    "decode": ("decode", "dtt_decode", (_VP, _LL, _VP, _INT, _INT, _INT, _LL, _INT, _VP)),
-    "decode_f32": ("decode", "dtt_decode_f32", (_VP, _LL, _VP, _INT, _INT, _LL, _INT, _VP)),
-    "decode_raw": ("decode", "dtt_decode_raw", (_VP, _LL, _VP, _INT, _INT, _INT, _VP)),
-    # the batched launches: one per call, whatever the batch size
-    "split_batched": (
-        "split", "dtt_split_batched",
-        (_VP, _LL, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
-    ),
-    "split_f32_batched": (
-        "split_f32", "dtt_split_f32_batched",
+        "split_f32", "dtt_split_f32",
         (_VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _LL, _LL, _LL),
     ),
-    "hist_batched": ("hist", "dtt_hist_batched", (_VP, _LL, _LL, _VP, _VP, _VP, _LL)),
-    "encode_batched": (
-        "encode", "dtt_encode_batched", (_VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)
+    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _LL)),
+    "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)),
+    "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP)),
+    "decode": (
+        "decode", "dtt_decode", (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP),
     ),
-    "assembly_batched": (
-        "assembly", "dtt_assemble_batched", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _VP)
+    "decode_f32": (
+        "decode", "dtt_decode_f32", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP),
     ),
-    "decode_batched": (
-        "decode", "dtt_decode_batched",
-        (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP),
-    ),
-    "decode_f32_batched": (
-        "decode", "dtt_decode_f32_batched",
-        (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP),
-    ),
-    "decode_raw_batched": (
-        "decode", "dtt_decode_raw_batched", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP)
+    "decode_raw": (
+        "decode", "dtt_decode_raw", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP),
     ),
 }
 KERNELS = tuple(_ENTRY)

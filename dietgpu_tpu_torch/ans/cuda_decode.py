@@ -11,12 +11,12 @@ Counterpart of ``dietgpu_tpu.ans.pallas_decode.ans_decode_padded_pallas``:
   raw-ANS entry point :func:`ans_decode_padded` (counterpart of
   ``dietgpu_tpu.backend.ans_decode_padded``).
 
-The ``*_batched_*`` forms decode B archives, rows of one (B, stride)
-buffer, with one launch: the per-member-table configurations of the decode
-kernel (counterpart of ``ans_decode_batched_pallas`` and of the fused
-decode inside ``float_decompress_batched_pallas``), and the raw-ANS entry
-point :func:`ans_decode_batched`. Member sizes may be ragged; each member's
-comes from its own header.
+The kernel decodes B archives, rows of one (B, stride) buffer, with one
+launch, each member with its own table (counterpart of
+``ans_decode_batched_pallas`` and of the fused decode inside
+``float_decompress_batched_pallas``); a single archive is a batch of one.
+:func:`ans_decode_batched` is the raw-ANS batch entry point. Member sizes
+may be ragged; each member's comes from its own header.
 
 The kernel parses the headers and builds the decode LUT on the device, so
 the decode needs no host round trip; the plain versions do the same in
@@ -135,39 +135,17 @@ def _status(status):
     return st[0] != 0, st[1], st[2]
 
 
-def decode_float_cuda(
-    arc32, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
-):
-    """Launch ``csrc/decode.cu`` (f16/bf16 or f32 configuration); same
-    contract as :func:`decode_float_plain`."""
-    _check(arc32, float_type, out_max_words, prob_bits)
-    _build.check_cuda_tensor(arc32, "decode archive", torch.int32, align=4)
-    dev = arc32.device
-    f32 = float_type == C.FLOAT_TYPE_FLOAT32
-    out32 = torch.empty(
-        out_max_words if f32 else out_max_words // 2, dtype=torch.int32, device=dev
-    )
-    status = torch.zeros(3, dtype=torch.int32, device=dev)
-    nb_cap = out_max_words // C.DEFAULT_BLOCK_SIZE
-    sl = -1 if static_length is None else static_length
-    if f32:
-        _build.launch(
-            "decode_f32", arc32.data_ptr(), arc32.shape[0], out32.data_ptr(), nb_cap,
-            prob_bits, sl, int(with_digest), status.data_ptr(),
-        )
-    else:
-        _build.launch(
-            "decode", arc32.data_ptr(), arc32.shape[0], out32.data_ptr(), nb_cap,
-            float_type, prob_bits, sl, int(with_digest), status.data_ptr(),
-        )
-    return (out32, *_status(status))
-
-
 def decode_float(
     arc32, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
 ):
-    fn = decode_float_cuda if arc32.is_cuda else decode_float_plain
-    return fn(arc32, float_type, out_max_words, prob_bits, static_length, with_digest)
+    """:func:`decode_float_plain` of one container, through the kernel (a
+    batch of one) for a CUDA tensor."""
+    if not arc32.is_cuda:
+        return decode_float_plain(arc32, float_type, out_max_words, prob_bits,
+                                  static_length, with_digest)
+    out = decode_float_batched_cuda(arc32[None], float_type, out_max_words, prob_bits,
+                                    static_length, with_digest)
+    return tuple(x[0] for x in out)
 
 
 def decode_raw_plain(arc32, prob_bits, out_max, with_digest=False):
@@ -182,21 +160,6 @@ def decode_raw_plain(arc32, prob_bits, out_max, with_digest=False):
     res = plain_decode.ans_decode_padded(arc32, prob_bits, out_max)
     out32 = layout.u8_to_u32le(res["out"])
     return out32, res["success"], res["size"], _digest(out32, with_digest)
-
-
-def decode_raw_cuda(arc32, prob_bits, out_max, with_digest=False):
-    """Launch ``csrc/decode.cu`` (raw-byte configuration); same contract as
-    :func:`decode_raw_plain`."""
-    _check_archive(arc32, out_max, prob_bits)
-    _build.check_cuda_tensor(arc32, "decode archive", torch.int32, align=4)
-    dev = arc32.device
-    out32 = torch.empty(out_max // 4, dtype=torch.int32, device=dev)
-    status = torch.zeros(3, dtype=torch.int32, device=dev)
-    _build.launch(
-        "decode_raw", arc32.data_ptr(), arc32.shape[0], out32.data_ptr(),
-        out_max // C.DEFAULT_BLOCK_SIZE, prob_bits, int(with_digest), status.data_ptr(),
-    )
-    return (out32, *_status(status))
 
 
 def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
@@ -218,8 +181,12 @@ def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
         if archive.dim() != 1 or archive.shape[0] % 4:
             raise ValueError("ans decode: a byte archive must be 1-D with A % 4 == 0")
         arc32 = layout.u8_to_u32le(archive.contiguous())
-    fn = decode_raw_cuda if arc32.is_cuda else decode_raw_plain
-    out32, success, size, digest = fn(arc32, prob_bits, out_max, verify_checksum)
+    if arc32.is_cuda:
+        out32, success, size, digest = (x[0] for x in decode_raw_batched_cuda(
+            arc32[None], prob_bits, out_max, None, verify_checksum))
+    else:
+        out32, success, size, digest = decode_raw_plain(arc32, prob_bits, out_max,
+                                                        verify_checksum)
     checksum_ok = torch.ones((), dtype=torch.bool, device=arc32.device)
     if verify_checksum and arc32.shape[0] >= 6:
         opts, stored = layout.to_u32(arc32[4:6]).unbind()
@@ -241,7 +208,7 @@ def _check_batch(arcs, out_max, prob_bits):
     _check_archive(arcs[0], out_max, prob_bits)
 
 
-def _static_nb(static_length, out_max_words):
+def static_block_count(static_length, out_max_words):
     """The block count a static length fixes (as float_decompress_batched_pallas
     passes static_nb), or None."""
     if static_length is None:
@@ -250,25 +217,27 @@ def _static_nb(static_length, out_max_words):
 
 
 def decode_float_batched_plain(
-    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
+    static_nb=None,
 ):
     """Plain version of the per-member-table float decode: each row of
     `arcs` ((B, F4) int32) decoded as :func:`decode_float_plain` decodes
-    one container, reading nothing past its row; with `static_length` the
-    block geometry comes from it and each member's block count must match.
-    Returns (out32 (B, Lw/2) or (B, Lw), success (B,), size (B,), digest
-    (B,))."""
+    one container, reading nothing past its row; with `static_nb` (the
+    batched path's, from :func:`static_block_count`) the block geometry comes from
+    it and each member's block count must match. Returns (out32 (B, Lw/2)
+    or (B, Lw), success (B,), size (B,), digest (B,))."""
     _check_batch(arcs, out_max_words, prob_bits)
     _check(arcs[0], float_type, out_max_words, prob_bits)
     return _float_rows_plain(arcs, float_type, out_max_words, prob_bits, static_length,
-                             _static_nb(static_length, out_max_words), with_digest)
+                             static_nb, with_digest)
 
 
 def decode_float_batched_cuda(
-    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
+    static_nb=None,
 ):
-    """Launch the batched f16/bf16 or f32 configuration of
-    ``csrc/decode.cu``, one launch for all B rows; same contract as
+    """Launch the f16/bf16 or f32 configuration of ``csrc/decode.cu``, one
+    launch for all B rows; same contract as
     :func:`decode_float_batched_plain`."""
     _check_batch(arcs, out_max_words, prob_bits)
     _check(arcs[0], float_type, out_max_words, prob_bits)
@@ -282,26 +251,27 @@ def decode_float_batched_cuda(
     status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     nb_cap = out_max_words // C.DEFAULT_BLOCK_SIZE
     sl = -1 if static_length is None else static_length
-    snb = _static_nb(static_length, out_max_words)
-    snb = -1 if snb is None else snb
+    snb = -1 if static_nb is None else static_nb
     if f32:
         _build.launch(
-            "decode_f32_batched", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
+            "decode_f32", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
             prob_bits, sl, snb, int(with_digest), status.data_ptr(),
         )
     else:
         _build.launch(
-            "decode_batched", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
+            "decode", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
             float_type, prob_bits, sl, snb, int(with_digest), status.data_ptr(),
         )
     return (out32, *_status(status.T))
 
 
 def decode_float_batched(
-    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
+    static_nb=None,
 ):
     fn = decode_float_batched_cuda if arcs.is_cuda else decode_float_batched_plain
-    return fn(arcs, float_type, out_max_words, prob_bits, static_length, with_digest)
+    return fn(arcs, float_type, out_max_words, prob_bits, static_length, with_digest,
+              static_nb)
 
 
 def decode_raw_batched_plain(arcs, prob_bits, out_max, static_nb=None, with_digest=False):
@@ -317,8 +287,8 @@ def decode_raw_batched_plain(arcs, prob_bits, out_max, static_nb=None, with_dige
 
 
 def decode_raw_batched_cuda(arcs, prob_bits, out_max, static_nb=None, with_digest=False):
-    """Launch the batched raw-byte configuration of ``csrc/decode.cu``, one
-    launch for all B rows; same contract as :func:`decode_raw_batched_plain`."""
+    """Launch the raw-byte configuration of ``csrc/decode.cu``, one launch
+    for all B rows; same contract as :func:`decode_raw_batched_plain`."""
     _check_batch(arcs, out_max, prob_bits)
     _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
     B, A32 = arcs.shape
@@ -326,7 +296,7 @@ def decode_raw_batched_cuda(arcs, prob_bits, out_max, static_nb=None, with_diges
     out32 = torch.empty((B, out_max // 4), dtype=torch.int32, device=dev)
     status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     _build.launch(
-        "decode_raw_batched", arcs.data_ptr(), B, A32, out32.data_ptr(),
+        "decode_raw", arcs.data_ptr(), B, A32, out32.data_ptr(),
         out_max // C.DEFAULT_BLOCK_SIZE, prob_bits,
         -1 if static_nb is None else static_nb, int(with_digest), status.data_ptr(),
     )

@@ -1,20 +1,20 @@
 """rANS encode on the card: the encode kernel (``csrc/encode.cu``), the
 section prefill, and the assembly kernel (``csrc/assembly.cu``), and the
-raw-ANS entry point that puts the histogram kernel (``csrc/hist.cu``) in
+raw-ANS entry points that put the histogram kernel (``csrc/hist.cu``) in
 front of them.
 
 Counterpart of ``dietgpu_tpu.ans.pallas_encode`` (``_encode_stage1``,
-``_encode_stage2``, ``_encode_finish``, ``ans_encode_padded_pallas``). A
-CUDA tensor goes through the kernels; a CPU tensor through their plain
-versions in :mod:`.encode` and :mod:`.cuda_hist`. The glue between them
-(probability quantization, tables, sections, prefix) is torch on either
-device.
+``_encode_stage2``, ``_encode_finish``, ``ans_encode_padded_pallas``,
+``ans_encode_batched_pallas``). A CUDA tensor goes through the kernels; a
+CPU tensor through their plain versions in :mod:`.encode` and
+:mod:`.cuda_hist`. The glue between them (probability quantization,
+tables, sections, prefix) is torch on either device.
 
-The batched forms encode B members, rows of one (B, L/4) buffer, each with
-its own table and length, with one launch of each kernel whatever B is
-(counterpart of ``ans_encode_batched_pallas``: the per-member-table encode
-and the batched assembly), and :func:`ans_encode_batched` is the raw-ANS
-batch entry point.
+Every step works on B members, rows of one (B, L/4) buffer, each with its
+own table and length, with one launch of each kernel whatever B is (the
+per-member-table encode and the batched assembly). A single input is a
+batch of one: :func:`ans_encode_padded` and :func:`ans_encode_batched`
+run the same code.
 """
 
 import torch
@@ -26,69 +26,95 @@ from . import encode as plain_encode
 from . import layout, stats
 
 
-def encode_blocks_cuda(data32, length, prob_bits, table):
-    """Launch ``csrc/encode.cu``; same contract as :func:`encode.encode_blocks`
-    except that staging words past a block's count are left unwritten."""
-    NB = data32.shape[0] * 4 // C.DEFAULT_BLOCK_SIZE
-    _build.check_cuda_tensor(data32, "encode data", torch.int32, NB * 1024)
-    _build.check_cuda_tensor(table, "encode table", torch.int32, 512, align=4)
+def encode_blocks_batched_cuda(data32, length, prob_bits, tables):
+    """Launch ``csrc/encode.cu``, one launch for all B members; same
+    contract as :func:`encode.encode_blocks_batched` (`length` an int for
+    every member or a (B,) int64 tensor on the card) except that staging
+    words past a block's count are left unwritten."""
+    B, n4 = data32.shape
+    NBm = n4 * 4 // C.DEFAULT_BLOCK_SIZE
+    _build.check_cuda_tensor(data32, "encode data", torch.int32, B * NBm * 1024)
+    _build.check_cuda_tensor(tables, "encode tables", torch.int32, B * 512, align=4)
+    scalar = isinstance(length, int)
+    if not scalar:
+        _build.check_cuda_tensor(length, "encode lengths", torch.int64, B, align=8)
     dev = data32.device
-    staged = torch.empty((NB, plain_encode.MW), dtype=torch.int16, device=dev)
-    counts = torch.empty(NB, dtype=torch.int32, device=dev)
-    states = torch.empty((NB, C.NUM_INTERLEAVED), dtype=torch.int32, device=dev)
+    staged = torch.empty((B * NBm, plain_encode.MW), dtype=torch.int16, device=dev)
+    counts = torch.empty(B * NBm, dtype=torch.int32, device=dev)
+    states = torch.empty((B * NBm, C.NUM_INTERLEAVED), dtype=torch.int32, device=dev)
     _build.launch(
-        "encode", data32.data_ptr(), NB, length, prob_bits, table.data_ptr(),
+        "encode", data32.data_ptr(), B, NBm, length if scalar else 0,
+        None if scalar else length.data_ptr(), prob_bits, tables.data_ptr(),
         staged.data_ptr(), counts.data_ptr(), states.data_ptr(),
     )
     return staged, counts, states
 
 
-def assemble_payload_cuda(arc32, ds32, staged, counts, prefix):
-    """Launch ``csrc/assembly.cu``; same contract as
-    :func:`encode.assemble_payload`."""
-    nb = prefix.shape[0]
+def assemble_payload_batched_cuda(arcs, ds32, staged, counts, prefix):
+    """Launch ``csrc/assembly.cu``, one launch for all B members; same
+    contract as :func:`encode.assemble_payload_batched` (`ds32` an int for
+    every member or a (B,) int64 tensor on the card). Each payload offset
+    must be a multiple of 4 u32."""
+    B, nb = prefix.shape
     if nb == 0:
         return
-    if ds32 % 4:
+    _build.check_cuda_tensor(arcs, "assembly archives", torch.int32)
+    if arcs.dim() != 2 or arcs.shape[0] != B or arcs.shape[1] % 4:
+        raise ValueError("assembly: the archives must be B rows of a multiple of 16 bytes")
+    scalar = isinstance(ds32, int)
+    if scalar and ds32 % 4:
         raise ValueError("assembly: payload offset must be 16-byte aligned")
-    _build.check_cuda_tensor(arc32, "assembly archive", torch.int32)
-    _build.check_cuda_tensor(staged, "assembly staged", torch.int16)
-    _build.check_cuda_tensor(counts, "assembly counts", torch.int32, align=4)
-    _build.check_cuda_tensor(prefix, "assembly prefix", torch.int32, nb, align=4)
-    if staged.shape[0] < nb or counts.shape[0] < nb:
-        raise ValueError("assembly: fewer staged blocks than prefix entries")
-    cap_vec = max(0, (arc32.shape[0] - ds32) // 4)
+    if not scalar:
+        _build.check_cuda_tensor(ds32, "assembly offsets", torch.int64, B, align=8)
+    _build.check_cuda_tensor(staged, "assembly staged", torch.int16, B * nb * plain_encode.MW)
+    _build.check_cuda_tensor(counts, "assembly counts", torch.int32, B * nb, align=4)
+    _build.check_cuda_tensor(prefix, "assembly prefix", torch.int32, B * nb, align=4)
     _build.launch(
-        "assembly", staged.data_ptr(), counts.data_ptr(), prefix.data_ptr(),
-        nb, arc32.data_ptr() + 4 * ds32, cap_vec,
+        "assembly", staged.data_ptr(), counts.data_ptr(), prefix.data_ptr(), B, nb,
+        arcs.data_ptr(), arcs.shape[1], ds32 if scalar else 0,
+        None if scalar else ds32.data_ptr(),
     )
 
 
-def ans_encode_into(
-    arc32, base32, data32, length, prob_bits, pdf, use_checksum=False,
-    checksum=None, *, plain,
+def ans_encode_batched_into(
+    arcs, base32, data32, lengths, prob_bits, pdfs, use_checksum=False,
+    checksums=None, *, plain, lengths_t=None,
 ):
-    """Encode data32's first `length` bytes with the quantized `pdf` into
-    the archive at u32 offset `base32` of `arc32` (in place).
+    """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
+    int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
+    R) int32) at u32 offset `base32` (a multiple of 4), in place, for every
+    member at once: one encode launch, the sections of all members, one
+    assembly launch.
 
-    `plain` selects the encode and assembly kernels' plain versions; the
+    `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
+    copy on the device, if the caller has one (made here only when the
+    lengths differ). `plain` selects the kernels' plain versions: the
     callers pass it for CPU tensors, and for the plain reference pipeline
-    that the chip check runs on the card. Returns the archive's byte size
-    as a 0-dim int64 tensor on the device, with SIZE_OVERFLOW_BIT set when
-    a block overflowed.
+    that the chip check runs on the card. Returns the archives' byte sizes,
+    (B,) int64 on the device, with SIZE_OVERFLOW_BIT where a member's block
+    overflowed.
     """
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    table = plain_encode.encode_table(pdf)
-    encode_fn = plain_encode.encode_blocks if plain else encode_blocks_cuda
-    staged, counts, states = encode_fn(data32, length, prob_bits, table)
-    prefix, ds32, size = plain_encode.write_sections(
-        arc32, base32, pdf, states, counts, length, prob_bits,
-        use_checksum=use_checksum, checksum=checksum,
+    if base32 % 4:
+        raise ValueError("ans encode: the archive offset must be 16-byte aligned")
+    # the kernels take one length (payload offset) when all members share it
+    n = lengths[0]
+    if any(m != n for m in lengths):
+        n = lengths_t if lengths_t is not None else torch.tensor(
+            lengths, dtype=torch.int64, device=data32.device)
+    tables = plain_encode.encode_table(pdfs)
+    encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
+    staged, counts, states = encode_fn(data32, n, prob_bits, tables)
+    prefix, ds32, ds32_t, sizes = plain_encode.write_sections_batched(
+        arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
     )
-    assemble_fn = plain_encode.assemble_payload if plain else assemble_payload_cuda
-    assemble_fn(arc32, ds32, staged, counts, prefix)
-    return size
+    assemble_fn = (
+        plain_encode.assemble_payload_batched if plain else assemble_payload_batched_cuda
+    )
+    ds = ds32[0] if all(d == ds32[0] for d in ds32) else ds32_t
+    assemble_fn(arcs, ds, staged, counts, prefix)
+    return sizes
 
 
 def ans_encode_padded(
@@ -109,12 +135,11 @@ def ans_encode_padded(
     On the card the chain is the histogram kernel (with the checksum fused
     when `use_checksum`), ``normalize_probs``, the encode kernel, the
     sections and the assembly kernel, with no host round trip; on the CPU
-    the same chain runs through the kernels' plain versions.
+    the same chain runs through the kernels' plain versions. It is
+    :func:`ans_encode_batched` on a batch of one.
     """
-    return _encode(
-        data, length, prob_bits, use_checksum, precomputed_histogram, precomputed_pdf,
-        plain=not data.is_cuda,
-    )
+    return _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
+                       precomputed_pdf, plain=not data.is_cuda)
 
 
 def ans_encode_padded_plain(
@@ -124,116 +149,24 @@ def ans_encode_padded_plain(
     """:func:`ans_encode_padded` through every kernel's plain version, on
     the device of `data`: the reference the chip check holds the kernel
     path against on the card."""
-    return _encode(
-        data, length, prob_bits, use_checksum, precomputed_histogram, precomputed_pdf,
-        plain=True,
-    )
+    return _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
+                       precomputed_pdf, plain=True)
 
 
-def _encode(data, length, prob_bits, use_checksum, precomputed_histogram,
-            precomputed_pdf, plain):
-    data32 = layout.u8_to_u32le(data) if data.dtype == torch.uint8 else data
-    L = data32.shape[0] * 4
-    if L == 0 or L % C.DEFAULT_BLOCK_SIZE:
-        raise ValueError(f"ans encode: {L} bytes is not a positive multiple of 4096")
-    if not 0 <= length <= L:
-        raise ValueError(f"ans encode: length {length} outside [0, {L}]")
-    dev = data32.device
-    hist = cks = None
-    if (precomputed_pdf is None and precomputed_histogram is None) or use_checksum:
-        hist_fn = cuda_hist.histogram_u8_plain if plain else cuda_hist.histogram_u8_cuda
-        hist, cks = hist_fn(data32, length, with_checksum=use_checksum)
+def _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
+                precomputed_pdf, plain):
+    if data.dim() != 1:
+        raise ValueError("ans encode: data must be 1-D")
+    if not isinstance(length, int):
+        length = int(length)
+    pdfs = hist = None
     if precomputed_pdf is not None:
-        pdf = layout.to_u32(precomputed_pdf.to(dev))
-    else:
-        if precomputed_histogram is not None:
-            hist = precomputed_histogram.to(dev)
-        pdf = stats.normalize_probs(hist, length, prob_bits)
-    arc32 = torch.empty(
-        plain_encode.archive_buffer_bytes(L) // 4, dtype=torch.int32, device=dev
-    )
-    size = ans_encode_into(
-        arc32, 0, data32, length, prob_bits, pdf, use_checksum, cks, plain=plain
-    )
-    return arc32, size
-
-
-# ---- batched: B members, rows of one buffer, one launch per kernel ----
-
-
-def encode_blocks_batched_cuda(data32, lengths_t, prob_bits, tables):
-    """Launch the batched form of ``csrc/encode.cu``, one launch for all B
-    members; same contract as :func:`encode.encode_blocks_batched` except
-    that staging words past a block's count are left unwritten."""
-    B, n4 = data32.shape
-    NBm = n4 * 4 // C.DEFAULT_BLOCK_SIZE
-    _build.check_cuda_tensor(data32, "encode data", torch.int32, B * NBm * 1024)
-    _build.check_cuda_tensor(lengths_t, "encode lengths", torch.int64, B, align=8)
-    _build.check_cuda_tensor(tables, "encode tables", torch.int32, B * 512, align=4)
-    dev = data32.device
-    staged = torch.empty((B * NBm, plain_encode.MW), dtype=torch.int16, device=dev)
-    counts = torch.empty(B * NBm, dtype=torch.int32, device=dev)
-    states = torch.empty((B * NBm, C.NUM_INTERLEAVED), dtype=torch.int32, device=dev)
-    _build.launch(
-        "encode_batched", data32.data_ptr(), B, NBm, lengths_t.data_ptr(), prob_bits,
-        tables.data_ptr(), staged.data_ptr(), counts.data_ptr(), states.data_ptr(),
-    )
-    return staged, counts, states
-
-
-def assemble_payload_batched_cuda(arcs, ds32_t, staged, counts, prefix):
-    """Launch the batched form of ``csrc/assembly.cu``, one launch for all B
-    members; same contract as :func:`encode.assemble_payload_batched`. Each
-    payload offset in `ds32_t` must be a multiple of 4 u32."""
-    B, nb = prefix.shape
-    if nb == 0:
-        return
-    _build.check_cuda_tensor(arcs, "assembly archives", torch.int32)
-    if arcs.dim() != 2 or arcs.shape[0] != B or arcs.shape[1] % 4:
-        raise ValueError("assembly: the archives must be B rows of a multiple of 16 bytes")
-    _build.check_cuda_tensor(ds32_t, "assembly offsets", torch.int64, B, align=8)
-    _build.check_cuda_tensor(staged, "assembly staged", torch.int16, B * nb * plain_encode.MW)
-    _build.check_cuda_tensor(counts, "assembly counts", torch.int32, B * nb, align=4)
-    _build.check_cuda_tensor(prefix, "assembly prefix", torch.int32, B * nb, align=4)
-    _build.launch(
-        "assembly_batched", staged.data_ptr(), counts.data_ptr(), prefix.data_ptr(),
-        B, nb, arcs.data_ptr(), arcs.shape[1], ds32_t.data_ptr(),
-    )
-
-
-def ans_encode_batched_into(
-    arcs, base32, data32, lengths, prob_bits, pdfs, use_checksum=False,
-    checksums=None, *, plain, lengths_t=None,
-):
-    """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
-    int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
-    R) int32) at u32 offset `base32` (a multiple of 4), in place, for every
-    member at once: one encode launch, the sections of all members, one
-    assembly launch.
-
-    `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
-    copy on the device, if the caller has one. `plain` selects the kernels'
-    plain versions, as in :func:`ans_encode_into`. Returns the archives'
-    byte sizes, (B,) int64 on the device, with SIZE_OVERFLOW_BIT where a
-    member's block overflowed.
-    """
-    if prob_bits not in C.SUPPORTED_PROB_BITS:
-        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    if base32 % 4:
-        raise ValueError("ans encode: the archive offset must be 16-byte aligned")
-    if lengths_t is None:
-        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=data32.device)
-    tables = plain_encode.encode_table(pdfs)
-    encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
-    staged, counts, states = encode_fn(data32, lengths_t, prob_bits, tables)
-    prefix, _, ds32_t, sizes = plain_encode.write_sections_batched(
-        arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
-    )
-    assemble_fn = (
-        plain_encode.assemble_payload_batched if plain else assemble_payload_batched_cuda
-    )
-    assemble_fn(arcs, ds32_t, staged, counts, prefix)
-    return sizes
+        pdfs = precomputed_pdf[None]
+    elif precomputed_histogram is not None:
+        hist = precomputed_histogram[None]
+    arcs, sizes = _encode_batched(data[None], [length], pdfs, prob_bits, use_checksum,
+                                  plain, hist=hist)
+    return arcs[0], sizes[0]
 
 
 def ans_encode_batched(
@@ -272,7 +205,9 @@ def ans_encode_batched_plain(
     return _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain=True)
 
 
-def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain):
+def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, hist=None):
+    """`hist`, if given, is each member's (B, 256) histogram of its first
+    length[m] bytes, in place of the histogram pass."""
     if datas.dim() != 2:
         raise ValueError("ans encode: a batch is (B, L) uint8 or (B, L/4) int32")
     data32 = datas.contiguous().view(torch.int32) if datas.dtype == torch.uint8 else datas
@@ -286,16 +221,20 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain):
     if len(lengths) != B or not all(0 <= n <= L for n in lengths):
         raise ValueError(f"ans encode: need {B} lengths in [0, {L}]")
     dev = data32.device
-    lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
-    hist = cks = None
-    if pdfs is None or use_checksum:
+    lengths_t = None
+    if not all(n == lengths[0] for n in lengths):
+        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    cks = None
+    if (pdfs is None and hist is None) or use_checksum:
         hist_fn = (
             cuda_hist.histogram_u8_batched_plain if plain
             else cuda_hist.histogram_u8_batched_cuda
         )
-        hist, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
+        h, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
+        hist = h if hist is None else hist
     if pdfs is None:
-        pdfs = stats.normalize_probs(hist, lengths_t, prob_bits)
+        totals = lengths[0] if lengths_t is None else lengths_t
+        pdfs = stats.normalize_probs(hist.to(dev), totals, prob_bits)
     else:
         pdfs = layout.to_u32(pdfs.to(dev))
     arcs = torch.empty(

@@ -6,10 +6,10 @@ histogram of the first `length` bytes of a packed little-endian byte
 stream, with the folded XOR checksum of the same bytes fused into the pass.
 
 A CUDA tensor goes through the kernel; a CPU tensor through the plain
-version. The batched forms (counterpart of the vmapped
-``histogram_u8_pallas`` of the JAX package's one-grid batch encode) give
-each row of a (B, n4) batch its own length, histogram and checksum, in one
-launch.
+version. The kernel gives each row of a (B, n4) batch its own length,
+histogram and checksum, in one launch (counterpart of the vmapped
+``histogram_u8_pallas`` of the JAX package's one-grid batch encode); a
+single stream is a batch of one.
 """
 
 import torch
@@ -44,24 +44,6 @@ def histogram_u8_plain(data32, length, with_checksum=False):
     return hist, cks
 
 
-def histogram_u8_cuda(data32, length, with_checksum=False):
-    """Launch ``csrc/hist.cu``; same contract as :func:`histogram_u8_plain`.
-    The kernel reads whole 16-byte groups, so ``data32.shape[0]`` must be a
-    multiple of 4."""
-    _check(data32, length)
-    _build.check_cuda_tensor(data32, "histogram data", torch.int32)
-    if data32.shape[0] % 4:
-        raise ValueError("histogram: the kernel needs a multiple of 16 bytes")
-    dev = data32.device
-    hist = torch.zeros(C.NUM_SYMBOLS, dtype=torch.int32, device=dev)
-    cks = torch.zeros(1, dtype=torch.int32, device=dev)
-    _build.launch(
-        "hist", data32.data_ptr(), C.div_up(length, 16), length, hist.data_ptr(),
-        cks.data_ptr() if with_checksum else None,
-    )
-    return hist, cks[0]
-
-
 def _check_batched(data32, lengths):
     if data32.dtype != torch.int32 or data32.dim() != 2:
         raise ValueError("histogram: a batch is (B, n4) int32 packed bytes")
@@ -85,24 +67,26 @@ def histogram_u8_batched_plain(data32, lengths, with_checksum=False, lengths_t=N
 
 
 def histogram_u8_batched_cuda(data32, lengths, with_checksum=False, lengths_t=None):
-    """Launch the batched form of ``csrc/hist.cu``, one launch for all B
-    rows; same contract as :func:`histogram_u8_batched_plain`. `lengths_t`
-    ((B,) int64 on the card) saves the copy of `lengths` when the caller
-    has one. Each row must be a multiple of 16 bytes."""
+    """Launch ``csrc/hist.cu``, one launch for all B rows; same contract as
+    :func:`histogram_u8_batched_plain`. The kernel takes one length when
+    they are all equal, else their (B,) int64 copy on the card:
+    `lengths_t`, or made here. Each row must be a multiple of 16 bytes."""
     lengths = _check_batched(data32, lengths)
     _build.check_cuda_tensor(data32, "histogram data", torch.int32)
     if data32.shape[1] % 4:
         raise ValueError("histogram: the kernel needs rows of a multiple of 16 bytes")
     B = data32.shape[0]
     dev = data32.device
-    if lengths_t is None:
-        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
-    _build.check_cuda_tensor(lengths_t, "histogram lengths", torch.int64, B, align=8)
+    equal = all(n == lengths[0] for n in lengths)
+    if not equal:
+        if lengths_t is None:
+            lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+        _build.check_cuda_tensor(lengths_t, "histogram lengths", torch.int64, B, align=8)
     hist = torch.zeros((B, C.NUM_SYMBOLS), dtype=torch.int32, device=dev)
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
-        "hist_batched", data32.data_ptr(), B, data32.shape[1] // 4,
-        lengths_t.data_ptr(), hist.data_ptr(),
+        "hist", data32.data_ptr(), B, data32.shape[1] // 4, lengths[0] if equal else 0,
+        None if equal else lengths_t.data_ptr(), hist.data_ptr(),
         cks.data_ptr() if with_checksum else None, data32.shape[1],
     )
     return hist, cks
@@ -130,6 +114,9 @@ def histogram_u8(data: torch.Tensor, length: int, with_checksum: bool = False):
     if pad:  # whole 16-byte groups for the kernel
         data8 = torch.cat([data8, data8.new_zeros(pad)])
     data32 = layout.u8_to_u32le(data8.contiguous())
-    fn = histogram_u8_cuda if data32.is_cuda else histogram_u8_plain
-    hist, cks = fn(data32, length, with_checksum)
+    if data32.is_cuda:
+        hist, cks = (x[0] for x in histogram_u8_batched_cuda(data32[None], [length],
+                                                               with_checksum))
+    else:
+        hist, cks = histogram_u8_plain(data32, length, with_checksum)
     return (hist, cks) if with_checksum else hist

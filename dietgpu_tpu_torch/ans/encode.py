@@ -3,21 +3,19 @@ kernels, and the archive sections between them.
 
 Counterpart of ``dietgpu_tpu.ans.encode`` (and of the section prefill in
 ``pallas_encode._encode_stage2``). The encode splits in three steps that
-the CUDA path shares:
+the CUDA path shares, each for B members of one padded length, each with
+its own table and length (counterpart of ``ans_encode_batched_pallas``, the
+per-member-table encode); a single input is a batch of one:
 
-1. :func:`encode_blocks` -- the interleaved 32-state encode of every 4 KiB
-   block and the per-block compaction of the emitted u16 words into a
-   staging row (plain version of ``csrc/encode.cu``);
-2. :func:`write_sections` -- header, probs, final states, blockWords and
-   the 16-byte-aligned exclusive prefix, written into the archive buffer
-   (torch glue on either device, as the JAX package keeps it outside any
-   kernel; :func:`write_sections_batched` does it for B archives at once);
-3. :func:`assemble_payload` -- each block's staged words copied to its
-   prefix offset (plain version of ``csrc/assembly.cu``).
-
-Each step has a batched form for B members of one padded length, each
-with its own table and length (counterpart of ``ans_encode_batched_pallas``,
-the per-member-table encode); the single forms are its one-member case.
+1. :func:`encode_blocks_batched` -- the interleaved 32-state encode of
+   every 4 KiB block and the per-block compaction of the emitted u16 words
+   into a staging row (plain version of ``csrc/encode.cu``);
+2. :func:`write_sections_batched` -- header, probs, final states,
+   blockWords and the 16-byte-aligned exclusive prefix, written into the
+   archive buffer (torch glue on either device, as the JAX package keeps it
+   outside any kernel);
+3. :func:`assemble_payload_batched` -- each block's staged words copied to
+   its prefix offset (plain version of ``csrc/assembly.cu``).
 
 Archive layout (GpuANSUtils.cuh:67-229), u32 words from the archive base:
 [0:8) header, [8:136) u16 probs, [136:136+32nb) states, then
@@ -51,24 +49,19 @@ def encode_table(pdf: torch.Tensor) -> torch.Tensor:
     return layout.to_i32(torch.cat([e1, magic], -1))
 
 
-def encode_blocks(data32: torch.Tensor, length: int, prob_bits: int, table):
-    """Encode every 4 KiB block of the packed bytes `data32` ((L/4,) int32).
+def encode_blocks_batched(data32, length, prob_bits, tables):
+    """Plain version of the encode kernel: encode every 4 KiB block of each
+    row of `data32` ((B, L/4) int32 packed bytes) with the row's table
+    ((B, 512)), the symbols at index >= the row's length not encoded;
+    `length` is an int (every row) or a (B,) int64 tensor.
 
-    Returns (staged (NB, 2560) int16, counts (NB,) int32, states (NB, 32)
-    int32): each block's emitted u16 words in (step, lane) order (zero past
-    its count; a count above 2560 means the block overflowed and only its
-    first 2560 words are kept), the word counts, and the final lane states.
-    Symbols at index >= length are not encoded.
+    Returns (staged (B * NBm, 2560) int16, counts (B * NBm,) int32, states
+    (B * NBm, 32) int32), member m's block b at row m * NBm + b (NBm =
+    L/4096): each block's emitted u16 words in (step, lane) order (zero
+    past its count; a count above 2560 means the block overflowed and only
+    its first 2560 words are kept), the word counts, and the final lane
+    states.
     """
-    lengths = torch.tensor([length], dtype=torch.int64, device=data32.device)
-    return encode_blocks_batched(data32[None], lengths, prob_bits, table[None])
-
-
-def encode_blocks_batched(data32, lengths, prob_bits, tables):
-    """Plain version of the batched encode kernel: :func:`encode_blocks` of
-    each row of `data32` ((B, L/4) int32) with its own length ((B,) int64)
-    and table ((B, 512)). Returns the outputs of all members stacked,
-    member m's block b at row m * NBm + b (NBm = L/4096)."""
     B = data32.shape[0]
     data = data32.contiguous().view(torch.uint8)
     L = data.shape[1]
@@ -77,9 +70,8 @@ def encode_blocks_batched(data32, lengths, prob_bits, tables):
     t = layout.to_u32(tables)
     e1, magic = t[:, :256], t[:, 256:]
     syms = data.long().reshape(B, NB * S * W)
-    valid = (torch.arange(L, device=dev)[None, :] < lengths.to(dev)[:, None]).reshape(
-        B * NB, S, W
-    )
+    n = length if isinstance(length, int) else length.to(dev)[:, None]
+    valid = (torch.arange(L, device=dev)[None, :] < n).expand(B, L).reshape(B * NB, S, W)
     check_shift = C.ANS_STATE_BITS - prob_bits
 
     def lookup(tab, sym):  # each member's table at its own blocks' symbols
@@ -120,25 +112,6 @@ def encode_blocks_batched(data32, lengths, prob_bits, tables):
     return staged.to(torch.int16), counts.to(torch.int32), layout.to_i32(state)
 
 
-def write_sections(
-    arc32, base32, pdf, states, counts, length, prob_bits, use_checksum=False,
-    checksum=None,
-):
-    """Write header, probs, states and blockWords of the archive at u32
-    offset `base32` of `arc32`; compute the payload prefix.
-
-    Returns (prefix (NB,) int32 u16 offsets, payload u32 offset from the
-    buffer start, size 0-dim int64 archive bytes, SIZE_OVERFLOW_BIT set when
-    a block overflowed). Runs on the device of its inputs without a host
-    round trip. The one-member case of :func:`write_sections_batched`.
-    """
-    prefix, ds32, _, sizes = write_sections_batched(
-        arc32[None], base32, pdf[None], states, counts, [length], prob_bits,
-        use_checksum, None if checksum is None else torch.as_tensor(checksum)[None],
-    )
-    return prefix[0], ds32[0], sizes[0]
-
-
 def write_sections_batched(
     arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum=False,
     checksums=None,
@@ -150,7 +123,8 @@ def write_sections_batched(
     the encode's outputs, member m's block b at row m * NBm + b, with a
     count of 0 for every block past the member's length; `lengths` is B
     host ints (ragged block counts allowed); `checksums` (B,) when
-    `use_checksum`. Each row gets what :func:`write_sections` writes.
+    `use_checksum`. Each row gets its archive's header, probs, final
+    states and blockWords, and the payload prefix is computed.
 
     The geometry comes from the host lengths, so nothing is read back from
     the device; only B block counts, lengths and offsets go to it, and the
@@ -159,7 +133,11 @@ def write_sections_batched(
     round_up(NBm, 2) words past them; each member's blockWords are then
     scattered over its own states from word 32 nb on, zero past its blocks.
     What is left of the states and zeros lies at or past the payload
-    offset, where the payload overwrites it or past the archive's end.
+    offset, where the payload overwrites it or past the archive's end: a
+    member of nb < NBm blocks gets up to 136 (NBm - nb) bytes written past
+    its sections that a per-member copy would not write (8.9 MB for a
+    one-block member of a 2^28-byte row, 0 for every member of paths A-E,
+    whose members fill their rows).
 
     Returns (prefix (B, NBm) int32, ds32 list of B host ints (payload u32
     offsets within the rows), ds32 as a (B,) int64 device tensor, sizes
@@ -177,9 +155,9 @@ def write_sections_batched(
     span = NBm * W + 2 * C.round_up(NBm, 2)
     if st32 + span > R:
         raise ValueError("write_sections: the rows are too short for the sections")
-    # the host-known values in one copy: the header's words but the total
-    # and checksum, then the payload and blockWords offsets, and the
-    # archive bytes before the payload
+    # the host-known values in one copy: the header's words (the total and
+    # checksum are filled in on the device), then the payload and blockWords
+    # offsets, and the archive bytes before the payload
     opts = prob_bits | (int(use_checksum) << 4)
     head = np.zeros((11, B), np.int64)
     head[0], head[1], head[2], head[4], head[8], head[9], head[10] = (
@@ -193,11 +171,12 @@ def write_sections_batched(
     prefix = incl - padded
     total = incl[:, -1]
 
+    host[3] = total
+    if use_checksum:
+        host[5] = layout.to_u32(checksums)
     pdfs = layout.to_u32(pdfs)
-    cks = layout.to_u32(checksums) if use_checksum else host[5]
-    hdr = torch.stack([host[0], host[1], host[2], total, host[4], cks, host[6], host[7]], 1)
     arcs[:, base32:st32] = layout.to_i32(
-        torch.cat([hdr, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1)
+        torch.cat([host[:8].T, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1)
     )
     arcs[:, st32 : st32 + NBm * W] = states.view(B, NBm * W)
     arcs[:, st32 + NBm * W : st32 + span] = 0
@@ -216,20 +195,14 @@ def write_sections_batched(
     return prefix.to(torch.int32), ds32.tolist(), host[8], sizes
 
 
-def assemble_payload(arc32, ds32, staged, counts, prefix):
-    """Plain version of the assembly kernel: copy block b's staged words,
-    zero-padded to a multiple of 8 u16, to u32 offset ds32 + prefix[b]/2.
-    Copies are clamped to the staging row and to the buffer."""
-    ds = torch.tensor([ds32], dtype=torch.int64, device=arc32.device)
-    assemble_payload_batched(arc32[None], ds, staged, counts, prefix[None])
-
-
 def assemble_payload_batched(arcs, ds32, staged, counts, prefix):
-    """Plain version of the batched assembly kernel: :func:`assemble_payload`
-    into each row of `arcs` ((B, R) int32), member m with its own payload
-    offset ds32[m] ((B,) int64) and prefix row ((B, nb) int32), its blocks
-    at rows m * NBm + b of `staged` and `counts` (NBm = rows / B). Copies
-    are clamped to each row."""
+    """Plain version of the assembly kernel: copy each block's staged words,
+    zero-padded to a multiple of 8 u16, into row m of `arcs` ((B, R) int32)
+    at u32 offset ds32 + prefix[m, b] / 2, member m with its own prefix row
+    ((B, nb) int32) and payload offset (`ds32` an int for every member or a
+    (B,) int64 tensor), its blocks at rows m * NBm + b of `staged` and
+    `counts` (NBm = rows / B). Copies are clamped to the staging row and to
+    each row of `arcs`."""
     B, nb = prefix.shape
     if nb == 0:
         return
@@ -243,7 +216,8 @@ def assemble_payload_batched(arcs, ds32, staged, counts, prefix):
     lo = torch.where(2 * j < w, st32 & 0xFFFF, 0)
     hi = torch.where(2 * j + 1 < w, st32 & 0xFFFF0000, 0)
     n32 = ((w + C.WORDS_PER_ALIGN - 1) & ~(C.WORDS_PER_ALIGN - 1)).clamp(max=MW) // 2
-    col = (ds32.to(dev)[:, None] + prefix.long() // 2).reshape(-1, 1) + j
+    ds = ds32 if isinstance(ds32, int) else ds32.to(dev)[:, None]
+    col = (ds + prefix.long() // 2).reshape(-1, 1) + j
     member = rows[:, None] // NBm
     keep = (j < n32) & (col < R)
     arcs.view(-1)[(member * R + col)[keep]] = layout.to_i32((lo | hi)[keep])

@@ -60,9 +60,12 @@ def normalize_probs(hist: torch.Tensor, total, prob_bits: int) -> torch.Tensor:
     # (K + 1) * 256: C(t) - C(t - 1) is the number of spares >= t, counted
     # by a search in the negated spares (ascending in rank order), so
     # C(1..K) is its cumulative sum; C(0) = 0 <= need always.
-    key = (q << 16) | sym
-    rank = (key[..., None, :] > key[..., :, None]).sum(-1)
-    vals0 = torch.zeros_like(q).scatter_(-1, rank, q)
+    # The keys are distinct, so one sort ranks them: vals0 is q in
+    # descending key order, and rank (the inverse permutation) maps each
+    # symbol to its place in it.
+    key, order = torch.sort((q << 16) | sym, -1, descending=True)
+    vals0 = key >> 16
+    rank = torch.empty_like(order).scatter_(-1, order, sym.expand_as(order))
     need0 = (-diff).clamp(min=0)
     neg_spare = (1 - vals0).clamp(max=0)
     neg_t = torch.arange(-1, -K - 1, -1, device=dev).expand(*q.shape[:-1], K)

@@ -1,7 +1,6 @@
 // Payload assembly: copies each block's staged u16 words to its 16-byte
-// aligned exclusive-prefix offset in the (section-prefilled) archive; for
-// one archive (assembly_kernel) or for every member of a batch at once
-// (assembly_batched_kernel).
+// aligned exclusive-prefix offset in the (section-prefilled) archive, for
+// every member of a batch at once (a single archive is a batch of one).
 //
 // Replaces: dietgpu_tpu/ans/pallas_encode.py:_assembly_kernel (via
 // _encode_finish, and with per_tile_seed=True via ans_encode_batched_pallas),
@@ -21,11 +20,12 @@
 //
 // Batched: the grid is (NBm, B). Member m's archive is row m of a buffer
 // with a stride of `stride32` u32 (16-byte aligned), its payload starts at
-// u32 ds32[m] of the row, its prefix is row m of a (B, NBm) array, and its
-// copies are clamped to the row's end, so a member never writes into the
-// next one. The vmapped single assembly of the TPU path and its one-grid
-// per_tile_seed variant write the same bytes; this one launch does both's
-// work. For a float batch the rows are the members' containers.
+// u32 ds32[m] of the row (or at one offset for every member), its prefix is
+// row m of a (B, NBm) array, and its copies are clamped to the row's end,
+// so a member never writes into the next one. The vmapped single assembly
+// of the TPU path and its one-grid per_tile_seed variant write the same
+// bytes; this one launch does both's work. For a float batch the rows are
+// the members' containers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,22 +64,12 @@ __device__ __forceinline__ void copy_block(const uint4* __restrict__ row,
 __global__ void __launch_bounds__(kThreads)
 assembly_kernel(const uint4* __restrict__ staged,
                 const uint32_t* __restrict__ counts,
-                const int* __restrict__ prefix, uint4* __restrict__ out,
-                long long cap_vec) {
-  const long long b = blockIdx.x;
-  copy_block(staged + b * kRowVec, counts[b], (long long)prefix[b] / 8, out,
-             cap_vec);
-}
-
-__global__ void __launch_bounds__(kThreads)
-assembly_batched_kernel(const uint4* __restrict__ staged,
-                        const uint32_t* __restrict__ counts,
-                        const int* __restrict__ prefix, long long nbm,
-                        uint32_t* __restrict__ arcs, long long stride32,
-                        const long long* __restrict__ ds32) {
+                const int* __restrict__ prefix, long long nbm,
+                uint32_t* __restrict__ arcs, long long stride32, long long ds,
+                const long long* __restrict__ ds32) {
   const long long m = blockIdx.y;
   const long long row = m * nbm + blockIdx.x;
-  const long long d = ds32[m];
+  const long long d = ds32 == nullptr ? ds : ds32[m];
   uint4* out = reinterpret_cast<uint4*>(arcs + m * stride32 + d);
   copy_block(staged + row * kRowVec, counts[row], (long long)prefix[row] / 8,
              out, (stride32 - d) / 4);
@@ -87,36 +77,22 @@ assembly_batched_kernel(const uint4* __restrict__ staged,
 
 }  // namespace
 
-// staged: nblocks rows of 2560 u16 (16-byte aligned); counts: u32 words per
-// block; prefix: int32 exclusive prefix of the 8-rounded counts (u16
-// units); out: the payload start in the archive (16-byte aligned), with
-// cap_vec uint4 slots before the archive's end.
+// staged (2560 u16 per block, 16-byte aligned), counts (u32 words per
+// block) and prefix (int32 exclusive prefix of the 8-rounded counts, u16
+// units) hold batch * nbm rows, member m's block b at row m * nbm + b. arcs
+// is `batch` rows of stride32 u32 (16-byte aligned, stride32 % 4 == 0);
+// member m's payload starts at u32 ds32[m] of its row (int64, a multiple of
+// 4), or at u32 `ds` of every row when ds32 is null.
 extern "C" int dtt_assemble(const void* staged, const void* counts,
-                            const void* prefix, long long nblocks, void* out,
-                            long long cap_vec, void* stream) {
-  if (nblocks > 0) {
-    assembly_kernel<<<(unsigned)nblocks, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint4*>(staged), static_cast<const uint32_t*>(counts),
-        static_cast<const int*>(prefix), static_cast<uint4*>(out), cap_vec);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The batched form: staged, counts and prefix hold batch * nbm rows, member
-// m's block b at row m * nbm + b; arcs is `batch` rows of stride32 u32
-// (16-byte aligned, stride32 % 4 == 0); ds32 is `batch` int64 payload
-// offsets (u32, multiples of 4) within the rows.
-extern "C" int dtt_assemble_batched(const void* staged, const void* counts,
-                                    const void* prefix, long long batch,
-                                    long long nbm, void* arcs,
-                                    long long stride32, const void* ds32,
-                                    void* stream) {
+                            const void* prefix, long long batch, long long nbm,
+                            void* arcs, long long stride32, long long ds,
+                            const void* ds32, void* stream) {
   if (nbm > 0 && batch > 0) {
-    assembly_batched_kernel<<<dim3((unsigned)nbm, (unsigned)batch), kThreads,
-                              0, (cudaStream_t)stream>>>(
+    assembly_kernel<<<dim3((unsigned)nbm, (unsigned)batch), kThreads, 0,
+                      (cudaStream_t)stream>>>(
         static_cast<const uint4*>(staged), static_cast<const uint32_t*>(counts),
         static_cast<const int*>(prefix), nbm, static_cast<uint32_t*>(arcs),
-        stride32, static_cast<const long long*>(ds32));
+        stride32, ds, static_cast<const long long*>(ds32));
   }
   return (int)cudaGetLastError();
 }

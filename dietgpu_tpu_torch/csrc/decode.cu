@@ -49,8 +49,8 @@
 // u32, which is also the clamp bound, so a lying header in member m fails
 // only member m's success and never reads member m + 1; its output is row
 // m of the output, its status is status[3m .. 3m + 3). Each CTA parses its
-// own member's headers and builds that member's LUT, exactly as the single
-// launch (B = 1) does. `static_nb` >= 0 is the batched path's known block
+// own member's headers and builds that member's LUT; a single archive is a
+// batch of one. `static_nb` >= 0 is the batched path's known block
 // count: the block geometry comes from it and success requires the
 // header's count to equal it, as with static_nb in the TPU path.
 
@@ -339,65 +339,39 @@ int launch_decode(const void* arcs, long long batch, long long a32, void* out,
 
 }  // namespace
 
-// Every entry point: arc holds a32 u32 words; status is 3 u32 zeroed by the
-// caller and receives success, the header's count (words of a float
-// container, bytes of a raw archive) and the folded output digest.
-// static_length < 0 means none. The batched entry points take `batch`
-// archives, rows of a32 u32 each, write `batch` output rows and 3 status
-// words per member; static_nb < 0 means none.
+// Every entry point takes `batch` archives, rows of a32 u32 each, writes
+// `batch` output rows, and 3 status words per member, zeroed by the caller:
+// success, the header's count (words of a float container, bytes of a raw
+// archive) and the folded output digest. static_length < 0 and static_nb <
+// 0 mean none.
 
-// f16/bf16 container -> nb_cap * 4096 words as 8-byte aligned u32 pairs.
-extern "C" int dtt_decode(const void* arc, long long a32, void* out,
-                          int nb_cap, int float_type, int prob_bits,
-                          long long static_length, int with_digest,
-                          void* status, void* stream) {
-  return launch_decode<kHalf>(arc, 1, a32, out, nb_cap, float_type, prob_bits,
-                              static_length, -1, with_digest, status, stream);
-}
-
-extern "C" int dtt_decode_batched(const void* arcs, long long batch,
-                                  long long a32, void* out, int nb_cap,
-                                  int float_type, int prob_bits,
-                                  long long static_length, long long static_nb,
-                                  int with_digest, void* status, void* stream) {
+// f16/bf16 containers -> nb_cap * 4096 words per row, as 8-byte aligned u32
+// pairs.
+extern "C" int dtt_decode(const void* arcs, long long batch, long long a32,
+                          void* out, int nb_cap, int float_type, int prob_bits,
+                          long long static_length, long long static_nb,
+                          int with_digest, void* status, void* stream) {
   return launch_decode<kHalf>(arcs, batch, a32, out, nb_cap, float_type,
                               prob_bits, static_length, static_nb, with_digest,
                               status, stream);
 }
 
-// f32 container -> nb_cap * 4096 u32 words, 16-byte aligned.
-extern "C" int dtt_decode_f32(const void* arc, long long a32, void* out,
-                              int nb_cap, int prob_bits,
-                              long long static_length, int with_digest,
-                              void* status, void* stream) {
-  return launch_decode<kF32>(arc, 1, a32, out, nb_cap, 3, prob_bits,
-                             static_length, -1, with_digest, status, stream);
-}
-
-extern "C" int dtt_decode_f32_batched(const void* arcs, long long batch,
-                                      long long a32, void* out, int nb_cap,
-                                      int prob_bits, long long static_length,
-                                      long long static_nb, int with_digest,
-                                      void* status, void* stream) {
+// f32 containers -> nb_cap * 4096 u32 words per row, 16-byte aligned.
+extern "C" int dtt_decode_f32(const void* arcs, long long batch, long long a32,
+                              void* out, int nb_cap, int prob_bits,
+                              long long static_length, long long static_nb,
+                              int with_digest, void* status, void* stream) {
   return launch_decode<kF32>(arcs, batch, a32, out, nb_cap, 3, prob_bits,
                              static_length, static_nb, with_digest, status,
                              stream);
 }
 
-// raw ANS archive -> nb_cap * 4096 bytes, 16-byte aligned, zero past each
-// block's symbols.
-extern "C" int dtt_decode_raw(const void* arc, long long a32, void* out,
-                              int nb_cap, int prob_bits, int with_digest,
+// raw ANS archives -> nb_cap * 4096 bytes per row, 16-byte aligned, zero
+// past each block's symbols.
+extern "C" int dtt_decode_raw(const void* arcs, long long batch, long long a32,
+                              void* out, int nb_cap, int prob_bits,
+                              long long static_nb, int with_digest,
                               void* status, void* stream) {
-  return launch_decode<kRaw>(arc, 1, a32, out, nb_cap, 0, prob_bits, -1, -1,
-                             with_digest, status, stream);
-}
-
-extern "C" int dtt_decode_raw_batched(const void* arcs, long long batch,
-                                      long long a32, void* out, int nb_cap,
-                                      int prob_bits, long long static_nb,
-                                      int with_digest, void* status,
-                                      void* stream) {
   return launch_decode<kRaw>(arcs, batch, a32, out, nb_cap, 0, prob_bits, -1,
                              static_nb, with_digest, status, stream);
 }

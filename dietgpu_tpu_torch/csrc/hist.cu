@@ -23,8 +23,8 @@
 //
 // Batched (the vmapped histogram_u8_pallas of the TPU path's one-grid batch
 // encode): grid y is the member. Member m reads row m of the bytes, up to
-// its own length from a device array, and counts into histogram row m and
-// checksum m.
+// its own length from a device array (or one length for every member), and
+// counts into histogram row m and checksum m.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -128,22 +128,14 @@ int launch_hist(const void* data, long long batch, long long row_quads,
 
 }  // namespace
 
-// data: n_quad * 16 bytes (16-byte aligned) holding at least the first
-// `length` bytes; bytes at index >= length are not counted. hist: 256 u32,
-// zeroed by the caller. cks: one u32, zeroed by the caller, or null when no
-// checksum is wanted.
-extern "C" int dtt_hist(const void* data, long long n_quad, long long length,
-                        void* hist, void* cks, void* stream) {
-  return launch_hist(data, 1, n_quad, length, nullptr, hist, cks, 0, stream);
-}
-
-// The batched form: `batch` rows of row_quads * 16 bytes at a stride of
-// stride32 u32 (a multiple of 4); member m counts its first lengths[m]
-// bytes (int64, <= 16 row_quads) into hist + 256 m and cks + m.
-extern "C" int dtt_hist_batched(const void* data, long long batch,
-                                long long row_quads, const void* lengths,
-                                void* hist, void* cks, long long stride32,
-                                void* stream) {
-  return launch_hist(data, batch, row_quads, 0, lengths, hist, cks, stride32,
-                     stream);
+// data: `batch` rows of row_quads * 16 bytes (16-byte aligned) at a stride
+// of stride32 u32 (a multiple of 4); member m counts the first lengths[m]
+// bytes of its row (int64, <= 16 row_quads), or the first `length` when
+// `lengths` is null, into hist + 256 m (zeroed by the caller) and cks + m
+// (zeroed by the caller; null when no checksum is wanted).
+extern "C" int dtt_hist(const void* data, long long batch, long long row_quads,
+                        long long length, const void* lengths, void* hist,
+                        void* cks, long long stride32, void* stream) {
+  return launch_hist(data, batch, row_quads, length, lengths, hist, cks,
+                     stride32, stream);
 }

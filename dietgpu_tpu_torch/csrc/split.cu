@@ -134,27 +134,17 @@ int launch_split(const void* pairs, long long batch, long long n_oct,
 
 }  // namespace
 
-// pairs: n_oct * 4 u32 word pairs (16-byte aligned); words at index >=
-// length are treated as zero. exp_out / nc_out: n_oct * 8 bytes each
-// (8-byte aligned). hist: 256 u32, zeroed by the caller. cks: one u32,
-// zeroed by the caller, or null when no checksum is wanted.
-extern "C" int dtt_split(const void* pairs, long long n_oct, long long length,
-                         int bf16, void* exp_out, void* nc_out, void* hist,
-                         void* cks, void* stream) {
-  return launch_split(pairs, 1, n_oct, length, bf16, exp_out, nc_out, hist,
-                      cks, 0, 0, 0, stream);
-}
-
-// The batched form: `batch` members, each as above, member m's pairs,
-// exponent plane and nonComp plane at u32 m * in_stride32, m * exp_stride32
-// and m * nc_stride32 (rows keeping the alignments above), its histogram at
-// hist + 256 m and its checksum at cks + m.
-extern "C" int dtt_split_batched(const void* pairs, long long batch,
-                                 long long n_oct, long long length, int bf16,
-                                 void* exp_out, void* nc_out, void* hist,
-                                 void* cks, long long in_stride32,
-                                 long long exp_stride32, long long nc_stride32,
-                                 void* stream) {
+// `batch` members of one static length. Member m's pairs (n_oct * 4 u32
+// word pairs, 16-byte aligned), exponent plane and nonComp plane (n_oct * 8
+// bytes each, 8-byte aligned) are at u32 m * in_stride32, m * exp_stride32
+// and m * nc_stride32; words at index >= length are treated as zero. hist:
+// 256 u32 per member, zeroed by the caller. cks: one u32 per member, zeroed
+// by the caller, or null when no checksum is wanted.
+extern "C" int dtt_split(const void* pairs, long long batch, long long n_oct,
+                         long long length, int bf16, void* exp_out,
+                         void* nc_out, void* hist, void* cks,
+                         long long in_stride32, long long exp_stride32,
+                         long long nc_stride32, void* stream) {
   return launch_split(pairs, batch, n_oct, length, bf16, exp_out, nc_out, hist,
                       cks, in_stride32, exp_stride32, nc_stride32, stream);
 }

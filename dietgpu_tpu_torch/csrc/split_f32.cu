@@ -149,34 +149,20 @@ int launch_split_f32(const void* words, long long batch, long long n_quad,
 
 }  // namespace
 
-// words: n_quad * 4 u32 f32 words (16-byte aligned); words at index >=
-// length are treated as zero. exp_out: n_quad u32 (4 exponent bytes each).
-// lo_out: 8-byte aligned, receives quads [0, lo_quads) of the low plane (4
-// u16 each); hi_out: receives quads [0, hi_quads) of the high plane (4
-// bytes each). hist: 256 u32, zeroed by the caller. cks: one u32, zeroed by
-// the caller, or null when no checksum is wanted.
-extern "C" int dtt_split_f32(const void* words, long long n_quad,
-                             long long length, void* exp_out, void* lo_out,
-                             long long lo_quads, void* hi_out,
+// `batch` members of one static length. Member m's words (n_quad * 4 u32,
+// 16-byte aligned) and exponent plane (n_quad u32, 4 exponent bytes each)
+// are at u32 m * in_stride32 and m * exp_stride32; words at index >= length
+// are treated as zero. Its low plane (8-byte aligned) receives quads [0,
+// lo_quads) (4 u16 each) at lo_out + m * plane_stride32, its high plane
+// quads [0, hi_quads) (4 bytes each) at hi_out + m * plane_stride32. hist:
+// 256 u32 per member, zeroed by the caller. cks: one u32 per member, zeroed
+// by the caller, or null when no checksum is wanted.
+extern "C" int dtt_split_f32(const void* words, long long batch,
+                             long long n_quad, long long length, void* exp_out,
+                             void* lo_out, long long lo_quads, void* hi_out,
                              long long hi_quads, void* hist, void* cks,
-                             void* stream) {
-  return launch_split_f32(words, 1, n_quad, length, exp_out, lo_out, lo_quads,
-                          hi_out, hi_quads, hist, cks, 0, 0, 0, stream);
-}
-
-// The batched form: `batch` members, each as above, member m's words and
-// exponent plane at u32 m * in_stride32 and m * exp_stride32, its low and
-// high planes at u32 m * plane_stride32 from lo_out and hi_out (rows keeping
-// the alignments above), its histogram at hist + 256 m and its checksum at
-// cks + m.
-extern "C" int dtt_split_f32_batched(const void* words, long long batch,
-                                     long long n_quad, long long length,
-                                     void* exp_out, void* lo_out,
-                                     long long lo_quads, void* hi_out,
-                                     long long hi_quads, void* hist, void* cks,
-                                     long long in_stride32,
-                                     long long exp_stride32,
-                                     long long plane_stride32, void* stream) {
+                             long long in_stride32, long long exp_stride32,
+                             long long plane_stride32, void* stream) {
   return launch_split_f32(words, batch, n_quad, length, exp_out, lo_out,
                           lo_quads, hi_out, hi_quads, hist, cks, in_stride32,
                           exp_stride32, plane_stride32, stream);

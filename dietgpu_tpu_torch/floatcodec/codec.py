@@ -15,12 +15,12 @@ held as an int32 buffer whose little-endian bytes are the container.
 Compress runs the split kernel (which writes the raw planes straight into
 the container), quantizes the exponent histogram, then encodes the
 exponent plane into the container right after the planes. Decompress is
-one fused decode+join kernel on the container. Tensors on the card go
-through the kernels, tensors on the CPU through their plain versions;
-nothing else selects the path. float_compress_padded_plain is the plain
-pipeline on any device, the reference for the kernel path.
-float_compress_batched and float_decompress_batched do the same for B
-members, rows of one buffer, with one launch of each kernel.
+one fused decode+join kernel on the container. float_compress_batched and
+float_decompress_batched do the same for B members, rows of one buffer,
+with one launch of each kernel; a single tensor is a batch of one. Tensors
+on the card go through the kernels, tensors on the CPU through their plain
+versions; nothing else selects the path. float_compress_padded_plain is
+the plain pipeline on any device, the reference for the kernel path.
 """
 
 import torch
@@ -77,7 +77,8 @@ def float_compress_padded(
     F = float_archive_buffer_bytes(float_type, Lw). archive bytes [0, size)
     equal the JAX package's archive for the same input; bytes past size are
     unspecified. Words on the card go through the kernels, words on the CPU
-    through their plain versions.
+    through their plain versions. It is :func:`float_compress_batched` on a
+    batch of one.
     """
     return _compress(
         words, length, float_type, prob_bits, use_checksum, plain=not words.is_cuda
@@ -98,53 +99,10 @@ def float_compress_padded_plain(
 
 
 def _compress(words, length, float_type, prob_bits, use_checksum, plain):
-    if float_type not in cuda_decode.FLOAT_TYPES:
-        raise ValueError(f"float type {float_type} is not f16/bf16/f32")
-    if prob_bits not in C.SUPPORTED_PROB_BITS:
-        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
     words = _as_words(words, float_type)
-    dev = words.device
-    f32 = float_type == C.FLOAT_TYPE_FLOAT32
-    Lw = words.shape[0] if f32 else 2 * words.shape[0]
-    arc32 = torch.empty(
-        float_archive_buffer_bytes(float_type, Lw) // 4, dtype=torch.int32, device=dev
-    )
-    if f32:
-        split_fn = (
-            cuda_float.split_words_f32_plain if plain else cuda_float.split_words_f32_cuda
-        )
-        hi_base = 4 + C.round_up(length, 8) // 2
-        exp32, _, _, hist, cks = split_fn(
-            words, length, with_checksum=use_checksum,
-            lo_out=arc32[4 : 4 + Lw // 2], hi_out=arc32[hi_base : hi_base + Lw // 4],
-        )
-        base = hi_base + C.round_up(length, 16) // 4
-    else:
-        split_fn = cuda_float.split_words_plain if plain else cuda_float.split_words_cuda
-        exp32, _, hist, cks = split_fn(
-            words, length, float_type, with_checksum=use_checksum,
-            nc_out=arc32[4 : 4 + Lw // 4],
-        )
-        base = 4 + C.round_up(length, 16) // 4
-    pdf = stats.normalize_probs(hist, length, prob_bits)
-
-    header = torch.tensor(
-        [
-            (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION,
-            length,
-            (float_type & 0xF) | (int(use_checksum) << 4),
-            0,
-        ],
-        dtype=torch.int64, device=dev,
-    )
-    if use_checksum:
-        header[3] = cks
-    arc32[:4] = layout.to_i32(header)
-
-    ans_size = cuda_encode.ans_encode_into(
-        arc32, base, exp32, length, prob_bits, pdf, plain=plain
-    )
-    return arc32, ans_size + 4 * base
+    arcs, sizes = _compress_batched(words[None], int(length), float_type, prob_bits,
+                                    use_checksum, plain)
+    return arcs[0], sizes[0]
 
 
 def float_decompress_padded(
@@ -238,8 +196,8 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain)
         raise ValueError("batched float compress needs one static length (an int)")
     if words.dim() != 2 or words.shape[0] == 0 or not words.is_contiguous():
         raise ValueError("float codec: a batch is a contiguous (B, ...) tensor of words, B > 0")
-    words = _as_words(words.view(-1), float_type).view(words.shape[0], -1)
     B = words.shape[0]
+    words = _as_words(words.view(-1), float_type).view(B, -1)
     dev = words.device
     f32 = float_type == C.FLOAT_TYPE_FLOAT32
     Lw = words.shape[1] if f32 else 2 * words.shape[1]
@@ -268,14 +226,12 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain)
         base = 4 + C.round_up(length, 16) // 4
     pdfs = stats.normalize_probs(hist, length, prob_bits)
 
-    header = torch.tensor(
-        [(C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION, length,
-         (float_type & 0xF) | (int(use_checksum) << 4), 0],
-        dtype=torch.int64, device=dev,
-    ).repeat(B, 1)
+    header = [(C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION, length,
+              (float_type & 0xF) | (int(use_checksum) << 4), 0]
+    arcs[:, :4] = torch.tensor([layout.as_i32(v) for v in header], dtype=torch.int32,
+                               device=dev)
     if use_checksum:
-        header[:, 3] = cks
-    arcs[:, :4] = layout.to_i32(header)
+        arcs[:, 3] = cks
 
     ans_sizes = cuda_encode.ans_encode_batched_into(
         arcs, base, exp32, [length] * B, prob_bits, pdfs, plain=plain
@@ -309,6 +265,7 @@ def float_decompress_batched(
     out32, success, size, digest = cuda_decode.decode_float_batched(
         archives, float_type, out_max_words, prob_bits, static_length,
         with_digest=verify_checksum,
+        static_nb=cuda_decode.static_block_count(static_length, out_max_words),
     )
     checksum_ok = torch.ones(archives.shape[0], dtype=torch.bool, device=archives.device)
     if verify_checksum:

@@ -9,9 +9,11 @@ the packed low-u16 plane (Lw/2,) and the packed high-u8 plane (Lw/4,).
 Both also give the exact exponent histogram of the first `length` words
 and the folded XOR checksum of their bytes.
 
-The batched forms (counterpart of the vmapped split kernels of
-``float_compress_batched_pallas``) split each row of a (B, ...) batch at one
-static length, with a histogram and a checksum per row, in one launch.
+The kernels split each row of a (B, ...) batch at one static length, with
+a histogram and a checksum per row, in one launch (counterpart of the
+vmapped split kernels of ``float_compress_batched_pallas``); a single
+tensor is a batch of one. The plain versions are per row, and their
+batched forms loop over the rows.
 
 The codec takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor.
@@ -66,26 +68,6 @@ def split_words_plain(pairs, length, float_type, with_checksum=False, nc_out=Non
     return layout.u8_to_u32le(comp), nc32, hist, cks
 
 
-def split_words_cuda(pairs, length, float_type, with_checksum=False, nc_out=None):
-    """Launch ``csrc/split.cu``; same contract as :func:`split_words_plain`."""
-    Lw = _check(pairs, length, float_type)
-    _build.check_cuda_tensor(pairs, "split pairs", torch.int32)
-    dev = pairs.device
-    exp32 = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
-    if nc_out is None:
-        nc_out = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
-    _build.check_cuda_tensor(nc_out, "split nc_out", torch.int32, Lw // 4, align=8)
-    hist = torch.zeros(C.NUM_SYMBOLS, dtype=torch.int32, device=dev)
-    cks = torch.zeros(1, dtype=torch.int32, device=dev)
-    _build.launch(
-        "split", pairs.data_ptr(), Lw // 8, length,
-        int(float_type == C.FLOAT_TYPE_BFLOAT16), exp32.data_ptr(),
-        nc_out.data_ptr(), hist.data_ptr(),
-        cks.data_ptr() if with_checksum else None,
-    )
-    return exp32, nc_out, hist, cks[0]
-
-
 def _check_f32(words: torch.Tensor, length: int):
     if words.dtype != torch.int32 or words.dim() != 1:
         raise ValueError("split f32: words must be a 1-D int32 tensor")
@@ -134,32 +116,7 @@ def split_words_f32_plain(words, length, with_checksum=False, lo_out=None, hi_ou
     return layout.u8_to_u32le(comp), lo32, hi32, hist, cks
 
 
-def split_words_f32_cuda(words, length, with_checksum=False, lo_out=None, hi_out=None):
-    """Launch ``csrc/split_f32.cu``; same contract as
-    :func:`split_words_f32_plain`."""
-    Lw = _check_f32(words, length)
-    _build.check_cuda_tensor(words, "split f32 words", torch.int32)
-    dev = words.device
-    exp32 = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
-    lo_quads = Lw // 4 if lo_out is None else C.round_up(length, 8) // 4
-    hi_quads = Lw // 4 if hi_out is None else C.round_up(length, 16) // 4
-    if lo_out is None:
-        lo_out = torch.empty(Lw // 2, dtype=torch.int32, device=dev)
-    if hi_out is None:
-        hi_out = torch.empty(Lw // 4, dtype=torch.int32, device=dev)
-    _build.check_cuda_tensor(lo_out, "split f32 lo_out", torch.int32, Lw // 2, align=8)
-    _build.check_cuda_tensor(hi_out, "split f32 hi_out", torch.int32, Lw // 4, align=4)
-    hist = torch.zeros(C.NUM_SYMBOLS, dtype=torch.int32, device=dev)
-    cks = torch.zeros(1, dtype=torch.int32, device=dev)
-    _build.launch(
-        "split_f32", words.data_ptr(), Lw // 4, length, exp32.data_ptr(),
-        lo_out.data_ptr(), lo_quads, hi_out.data_ptr(), hi_quads, hist.data_ptr(),
-        cks.data_ptr() if with_checksum else None,
-    )
-    return exp32, lo_out, hi_out, hist, cks[0]
-
-
-# ---- batched forms: B members of one static length, one launch ----
+# ---- B members of one static length, one launch ----
 
 
 def _check_rows(out, what, B, width, align):
@@ -189,8 +146,8 @@ def split_words_batched_plain(pairs, length, float_type, with_checksum=False, nc
 
 
 def split_words_batched_cuda(pairs, length, float_type, with_checksum=False, nc_out=None):
-    """Launch the batched form of ``csrc/split.cu``, one launch for all B
-    rows; same contract as :func:`split_words_batched_plain`."""
+    """Launch ``csrc/split.cu``, one launch for all B rows; same contract as
+    :func:`split_words_batched_plain`."""
     if pairs.dim() != 2:
         raise ValueError("split: a batch is (B, Lw/2) int32 word pairs")
     Lw = _check(pairs[0], length, float_type)
@@ -204,7 +161,7 @@ def split_words_batched_cuda(pairs, length, float_type, with_checksum=False, nc_
     hist = torch.zeros((B, C.NUM_SYMBOLS), dtype=torch.int32, device=dev)
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
-        "split_batched", pairs.data_ptr(), B, Lw // 8, length,
+        "split", pairs.data_ptr(), B, Lw // 8, length,
         int(float_type == C.FLOAT_TYPE_BFLOAT16), exp32.data_ptr(), nc_out.data_ptr(),
         hist.data_ptr(), cks.data_ptr() if with_checksum else None,
         pairs.shape[1], Lw // 4, nc_out.stride(0),
@@ -235,10 +192,10 @@ def split_words_f32_batched_plain(words, length, with_checksum=False, lo_out=Non
 
 def split_words_f32_batched_cuda(words, length, with_checksum=False, lo_out=None,
                                  hi_out=None):
-    """Launch the batched form of ``csrc/split_f32.cu``, one launch for all
-    B rows; same contract as :func:`split_words_f32_batched_plain`. `lo_out`
-    and `hi_out` must be both given (rows of one buffer, with one stride) or
-    both left out."""
+    """Launch ``csrc/split_f32.cu``, one launch for all B rows; same
+    contract as :func:`split_words_f32_batched_plain`. `lo_out` and `hi_out`
+    must be both given (rows of one buffer, with one stride) or both left
+    out."""
     if words.dim() != 2:
         raise ValueError("split f32: a batch is (B, Lw) int32 words")
     Lw = _check_f32(words[0], length)
@@ -261,7 +218,7 @@ def split_words_f32_batched_cuda(words, length, with_checksum=False, lo_out=None
     hist = torch.zeros((B, C.NUM_SYMBOLS), dtype=torch.int32, device=dev)
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
-        "split_f32_batched", words.data_ptr(), B, Lw // 4, length, exp32.data_ptr(),
+        "split_f32", words.data_ptr(), B, Lw // 4, length, exp32.data_ptr(),
         lo_out.data_ptr(), lo_quads, hi_out.data_ptr(), hi_quads, hist.data_ptr(),
         cks.data_ptr() if with_checksum else None, words.shape[1], Lw // 4,
         lo_out.stride(0),

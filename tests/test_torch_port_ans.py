@@ -207,20 +207,22 @@ def test_encode_and_assembly_kernels_match_plain(cuda_device):
     pdf = stats.normalize_probs(h, n, 10)
     table = pencode.encode_table(pdf)
     d32 = layout.u8_to_u32le(data)
-    staged, counts, states = cuda_encode.encode_blocks_cuda(d32, n, 10, table)
-    pst, pco, pss = pencode.encode_blocks(d32, n, 10, table)
+    staged, counts, states = cuda_encode.encode_blocks_batched_cuda(d32[None], n, 10, table[None])
+    pst, pco, pss = pencode.encode_blocks_batched(d32[None], n, 10, table[None])
     assert torch.equal(counts, pco) and torch.equal(states, pss)
     keep = torch.arange(staged.shape[1], device=cuda_device)[None, :] < counts.long()[:, None]
     assert torch.equal(torch.where(keep, staged, 0), pst)
 
-    arc_k = torch.zeros(pencode.archive_buffer_bytes(L) // 4, dtype=torch.int32, device=cuda_device)
-    prefix, ds32, size = pencode.write_sections(arc_k, 0, pdf, states, counts, n, 10)
+    arc_k = torch.zeros((1, pencode.archive_buffer_bytes(L) // 4), dtype=torch.int32,
+                        device=cuda_device)
+    prefix, ds32, _, size = pencode.write_sections_batched(
+        arc_k, 0, pdf[None], states, counts, [n], 10)
     arc_p = arc_k.clone()
-    cuda_encode.assemble_payload_cuda(arc_k, ds32, staged, counts, prefix)
-    pencode.assemble_payload(arc_p, ds32, staged, counts, prefix)
+    cuda_encode.assemble_payload_batched_cuda(arc_k, ds32[0], staged, counts, prefix)
+    pencode.assemble_payload_batched(arc_p, ds32[0], staged, counts, prefix)
     assert torch.equal(arc_k, arc_p)
     jarc, jsize = _enc_jit(jnp.asarray(data.cpu().numpy()), n, 10, False)
-    assert int(size) == int(jsize)
+    assert int(size[0]) == int(jsize)
     np.testing.assert_array_equal(
-        interop.archive_to_numpy(arc_k, int(size)), np.asarray(jarc)[: int(size)]
+        interop.archive_to_numpy(arc_k[0], int(size[0])), np.asarray(jarc)[: int(size[0])]
     )

@@ -268,9 +268,9 @@ def test_batched_matches_pallas_interpret(interpret_pallas):
 
 @pytest.mark.gpu
 def test_batched_ans_kernels_on_card_match_plain(cuda_device):
-    """hist_batched, encode_batched, assembly_batched and decode_raw_batched
-    against their plain versions, at B = 1, a one-block member and ragged
-    lengths, each launched once per call."""
+    """The hist, encode, assembly and decode_raw kernels on batches against
+    their plain versions, at B = 1, a one-block member and ragged lengths,
+    each launched once per call."""
     for lengths, size in (([L], L), ([1, L, 5000], L), (RAGGED * 3, 4 * L)):
         d = torch.from_numpy(_batch(len(lengths), lengths, size))
         kd = d.to(cuda_device)
@@ -279,8 +279,7 @@ def test_batched_ans_kernels_on_card_match_plain(cuda_device):
                 _build.reset_kernel_launches()
                 ka, ks = port.ans_encode_batched(kd, lengths, None, pb, ck)
                 counts = _build.kernel_launches()
-                assert [counts[k] for k in ("hist_batched", "encode_batched",
-                                            "assembly_batched")] == [1, 1, 1]
+                assert [counts[k] for k in ("hist", "encode", "assembly")] == [1, 1, 1]
                 pa, ps = cuda_encode.ans_encode_batched_plain(kd, lengths, None, pb, ck)
                 assert torch.equal(ks, ps)
                 for m in range(len(lengths)):

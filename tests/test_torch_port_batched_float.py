@@ -231,27 +231,27 @@ def test_batched_matches_pallas_interpret(interpret_pallas):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ft", TYPES)
 def test_batched_float_kernels_on_card_match_plain(cuda_device, ft):
-    """split_batched / split_f32_batched, encode_batched, assembly_batched
-    and decode_batched / decode_f32_batched against their plain versions,
-    at B = 1, a one-block batch and a ragged length, each launched once per
-    call."""
-    split_k = "split_f32_batched" if ft == F32 else "split_batched"
-    dec_k = "decode_f32_batched" if ft == F32 else "decode_batched"
+    """The split (or split_f32), encode, assembly and decode (or decode_f32)
+    kernels on batches against their plain versions, at B = 1, a one-block
+    batch and a ragged length, each launched once per call."""
+    split_k = "split_f32" if ft == F32 else "split"
+    dec_k = "decode_f32" if ft == F32 else "decode"
     for B, lw, n in ((1, LW, LW), (3, C.DEFAULT_BLOCK_SIZE, 17), (5, 4 * LW, 4 * LW - 12345)):
         w = interop.words_from_numpy(_words(B + ft, ft, [n] * B, lw)).to(cuda_device)
         for ck in (False, True):
             _build.reset_kernel_launches()
             ka, ks = port.float_compress_batched(w, n, ft, 10, ck)
             counts = _build.kernel_launches()
-            assert [counts[k] for k in (split_k, "encode_batched", "assembly_batched")] == [1, 1, 1]
+            assert [counts[k] for k in (split_k, "encode", "assembly")] == [1, 1, 1]
             pa, ps = codec.float_compress_batched_plain(w, n, ft, 10, ck)
             assert torch.equal(ks, ps)
             for m in range(B):
                 n32 = int(ks[m]) // 4
                 assert torch.equal(ka[m, :n32], pa[m, :n32])
             for digest in (False, True):
-                got = cuda_decode.decode_float_batched_cuda(ka, ft, lw, 10, n, digest)
-                want = cuda_decode.decode_float_batched_plain(ka, ft, lw, 10, n, digest)
+                snb = cuda_decode.static_block_count(n, lw)
+                got = cuda_decode.decode_float_batched_cuda(ka, ft, lw, 10, n, digest, snb)
+                want = cuda_decode.decode_float_batched_plain(ka, ft, lw, 10, n, digest, snb)
                 for a, b in zip(got, want):
                     assert torch.equal(a.to(torch.int64), b.to(torch.int64))
             _build.reset_kernel_launches()

@@ -244,7 +244,7 @@ def test_split_kernel_matches_plain(cuda_device, ft):
     pairs = torch.randint(-(2**31), 2**31, (Lw // 2,), dtype=torch.int32,
                           device=cuda_device, generator=g)
     for n in (Lw, Lw - 5, 17):
-        got = cuda_float.split_words_cuda(pairs, n, ft, True)
+        got = [x[0] for x in cuda_float.split_words_batched_cuda(pairs[None], n, ft, True)]
         want = cuda_float.split_words_plain(pairs, n, ft, True)
         for a, b in zip(got, want):
             assert torch.equal(a, b)

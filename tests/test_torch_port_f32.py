@@ -223,7 +223,7 @@ def test_f32_split_kernel_matches_plain(cuda_device):
                           device=cuda_device, generator=g)
     for n in (Lw, Lw - 5, 17):
         for ck in (False, True):
-            got = cuda_float.split_words_f32_cuda(words, n, ck)
+            got = [x[0] for x in cuda_float.split_words_f32_batched_cuda(words[None], n, ck)]
             want = cuda_float.split_words_f32_plain(words, n, ck)
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
@@ -239,7 +239,7 @@ def test_f32_codec_on_card_matches_cpu(cuda_device):
         assert int(ks) == int(ps)
         assert torch.equal(ka[: int(ks) // 4].cpu(), pa[: int(ps) // 4])
         for digest in (False, True):
-            got = cuda_decode.decode_float_cuda(ka, F32, LW, 10, n, digest)
+            got = cuda_decode.decode_float(ka, F32, LW, 10, n, digest)
             want = cuda_decode.decode_float_plain(ka, F32, LW, 10, n, digest)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu().to(torch.int64), b.cpu().to(torch.int64))

@@ -152,9 +152,7 @@ def test_convenience_entry_points_cpu(monkeypatch):
         port.float_decompress(arc)
     assert set(port.kernel_launches()) == {
         "split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
-        "decode_raw", "split_batched", "split_f32_batched", "hist_batched",
-        "encode_batched", "assembly_batched", "decode_batched", "decode_f32_batched",
-        "decode_raw_batched",
+        "decode_raw",
     }
 
 
@@ -198,7 +196,7 @@ def test_float_codec_on_card_matches_cpu(cuda_device, ft):
         assert int(ks) == int(ps)
         assert torch.equal(ka[: int(ks) // 4].cpu(), pa[: int(ps) // 4])
         for digest in (False, True):
-            got = cuda_decode.decode_float_cuda(ka, ft, LW, 10, n, digest)
+            got = cuda_decode.decode_float(ka, ft, LW, 10, n, digest)
             want = cuda_decode.decode_float_plain(ka, ft, LW, 10, n, digest)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu().to(torch.int64), b.cpu().to(torch.int64))

@@ -228,7 +228,7 @@ def test_hist_kernel_matches_plain(cuda_device):
                            device=cuda_device, generator=g)
     for n in (4 << 16, (4 << 16) - 3, 1001, 1, 0):
         for ck in (False, True):
-            got = cuda_hist.histogram_u8_cuda(data32, n, ck)
+            got = [x[0] for x in cuda_hist.histogram_u8_batched_cuda(data32[None], [n], ck)]
             want = cuda_hist.histogram_u8_plain(data32, n, ck)
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
@@ -245,7 +245,8 @@ def test_raw_ans_on_card_matches_cpu(cuda_device):
             assert int(ks) == int(ps)
             assert torch.equal(ka[: int(ks) // 4].cpu(), pa[: int(ps) // 4])
             for digest in (False, True):
-                got = cuda_decode.decode_raw_cuda(ka, pb, L, digest)
+                got = [x[0] for x in cuda_decode.decode_raw_batched_cuda(ka[None], pb, L, None,
+                                                                        digest)]
                 want = cuda_decode.decode_raw_plain(ka, pb, L, digest)
                 for a, b in zip(got, want):
                     assert torch.equal(a.cpu().to(torch.int64), b.cpu().to(torch.int64))

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Time the single-tensor calls of two checkouts of the port on one card.
+
+    python3 tools/ab_port.py OTHER_ROOT [--rounds N]
+
+Runs the calls of OTHER_ROOT and of this checkout in turns, OTHER, THIS,
+THIS, OTHER (N times over), each in a process of its own that imports
+``dietgpu_tpu_torch`` from its root and builds that root's kernels into its
+``build/``. A run times a compress and a decompress on paths A (128Mi bf16
+words), B (128Mi f32 words) and C (2^28 raw bytes) of chip_smoke.py, with
+inputs made as chip_smoke.py makes them, prob_bits 10, no checksum, 20
+calls each: the CUDA-event ms per call, and the host's enqueue ms per call
+(until the call returns, before synchronising), where the glue between the
+kernels shows. Two versions are compared only within one such run. Each
+child also counts, with torch.profiler over 10 compress calls, the CUDA
+runtime calls a compress makes (kernel launches, copies, stream
+synchronisations) and the host ms spent in them: a count that does not
+vary from run to run.
+
+Prints a line per run and the medians per tree, then one JSON line.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ITERS = 20
+
+
+def child(root):
+    """One timed run of the checkout at `root`; prints one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    import dietgpu_tpu_torch as port
+    from dietgpu_tpu_torch import _build
+
+    _build.build_all()
+    n = 128 << 20
+    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    bf16 = torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16).view(np.int32)).cuda()
+    f32 = torch.from_numpy(x.view(np.int32)).cuda()
+    raw = np.minimum(np.random.default_rng(0).exponential(30, 1 << 28), 255).astype(np.uint8)
+    raw = torch.from_numpy(raw).cuda()
+    del x
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        enqueue = 0.0
+        a.record()
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            fn()
+            enqueue += time.perf_counter() - t0
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / ITERS, enqueue * 1e3 / ITERS
+
+    out = {}
+    for name, ft, w in (("A", 2, bf16), ("B", 3, f32)):
+        arc, _ = port.float_compress_padded(w, n, ft, 10, False)
+        out[f"{name} compress"] = timed(lambda: port.float_compress_padded(w, n, ft, 10, False))
+        out[f"{name} decompress"] = timed(
+            lambda: port.float_decompress_padded(arc, ft, n, 10, False, static_length=n))
+    arc, _ = port.ans_encode_padded(raw, 1 << 28, 10, False)
+    out["C compress"] = timed(lambda: port.ans_encode_padded(raw, 1 << 28, 10, False))
+    out["C decompress"] = timed(lambda: port.ans_decode_padded(arc, 10, 1 << 28, False))
+    compress_calls = {
+        "A": lambda: port.float_compress_padded(bf16, n, 2, 10, False),
+        "B": lambda: port.float_compress_padded(f32, n, 3, 10, False),
+        "C": lambda: port.ans_encode_padded(raw, 1 << 28, 10, False),
+    }
+    calls = {}
+    for name, fn in compress_calls.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        count = {}
+        for e in prof.events():
+            if e.name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize"):
+                c = count.setdefault(e.name, [0, 0.0])
+                c[0] += 1
+                c[1] += e.cpu_time_total / 1e3
+        calls[f"{name} compress"] = {k: [c / 10, ms / 10] for k, (c, ms) in count.items()}
+    print(json.dumps({"ms": out, "runtime_calls": calls}))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(args.other)
+    roots = {"other": str(Path(args.other).resolve()),
+             "this": str(Path(__file__).resolve().parent.parent)}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    runs = []
+    for tree in ("other", "this", "this", "other") * args.rounds:
+        res = subprocess.run([sys.executable, __file__, roots[tree], "--child"],
+                             capture_output=True, text=True, check=True)
+        child_out = json.loads(res.stdout.strip().splitlines()[-1])
+        times = child_out["ms"]
+        runs.append({"tree": tree, "ms": times, "runtime_calls": child_out["runtime_calls"]})
+        print(f"# {tree:5s}: " + ", ".join(f"{k} {v[0]:.4f} (enqueue {v[1]:.4f})"
+                                           for k, v in times.items()) + f" ms ({card})",
+              flush=True)
+        for k, v in child_out["runtime_calls"].items():
+            print(f"#   {k}, per call: " + ", ".join(f"{c:g} {fn} ({ms:.4f} ms of host)"
+                                                      for fn, (c, ms) in v.items()), flush=True)
+    medians = {
+        tree: {k: [statistics.median(r["ms"][k][i] for r in runs if r["tree"] == tree)
+                   for i in (0, 1)]
+               for k in runs[0]["ms"]}
+        for tree in roots
+    }
+    for tree, m in medians.items():
+        print(f"# median of {tree}: " + ", ".join(f"{k} {v[0]:.4f} (enqueue {v[1]:.4f})"
+                                                  for k, v in m.items()) + " ms")
+    print(json.dumps({"card": card, "roots": roots, "runs": runs, "medians": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
