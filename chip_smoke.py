@@ -10,15 +10,17 @@ result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
                nvcc for sm_90a, all in parallel, into ``build/``;
-2. kernels  -- each of the eight kernels (split, split_f32, hist, encode,
-               assembly, decode in three configurations; every one takes
-               a batch, a single tensor being a batch of one) against its
-               plain torch version on the card, bit-exact (tolerance 0:
-               the codec is lossless and the archive format fixed), at
-               small and ragged shapes: single tensors, B = 1, members of
-               one block and ragged raw lengths; with a lying header and a
-               corrupted payload for each decode (in one member of a
-               batch: only it may fail);
+2. kernels  -- each of the ten kernels (split, split_f32, hist, encode,
+               assembly, decode in three configurations, join in two;
+               every one takes a batch, a single tensor being a batch of
+               one) against its plain torch version on the card,
+               bit-exact (tolerance 0: the codec is lossless and the
+               archive format fixed), at small and ragged shapes: single
+               tensors, B = 1, members of one block, ragged raw and float
+               lengths, joins on unaligned rows; with a lying header and
+               a corrupted payload for each decode (in one member of a
+               batch: only it may fail); and the API on the card against
+               its CPU route;
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -48,18 +50,35 @@ result line:
                through ans_encode_batched (its own histograms) /
                ans_decode_batched, with the same checks at prob_bits 10
                and exactness at 9 and 11;
+   path G   -- the reference's 128-way torch-op batch: path D's 128 bf16
+               tensors of 512Ki words as separate tensors through
+               torch_api.compress_data and the in-place
+               torch_api.decompress_data: every archive equals path D's,
+               every output its input, each kernel launched once per call;
+   path H   -- 64 ragged bf16 tensors, word counts uniform in [512Ki, 2Mi]
+               from default_rng(0), through api.compress_data /
+               api.decompress_data: every archive equals the member's
+               single-tensor float_compress_padded archive; then path F's
+               members through api.compress_data(False, ...) (path Hr),
+               every archive equal to path F's; each kernel once per call;
+   path J   -- the standalone join: path A's bf16 and path B's f32 input
+               split and joined back (join_words_packed,
+               join_words_packed_f32) at 128Mi words, exact against the
+               input and the plain join;
 4. timing   -- CUDA events: compress and decompress GB/s of each path (for
-               D-F also the same batch as B single-tensor calls), each
-               kernel's ms beside its bound and its plain version's ms
-               (and, for the histogram, torch.bincount's), and a measured
-               copy_ of path A's bytes.
+               D-F also the same batch as B single-tensor calls; G and H
+               beside D and the ragged batch's bytes), the joins' GB/s,
+               each kernel's ms beside its bound and its plain version's
+               ms (and, for the histogram, torch.bincount's), and a
+               measured copy_ of path A's bytes.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; a row's `launches` is its kernel's count from the row's
 path. The kernels line has a row for each kernel at each path's shapes
-that runs it: the single paths' rows (split ... decode_f32) and the batched
+that runs it: the single paths' rows (split ... decode_f32), the batched
 paths' (split_batched ... decode_raw_batched), which are the same kernels
-at paths D-F's shapes.
+at paths D-F's shapes, the split at path H's ragged lengths
+(split_ragged), and the joins at path J's (join, join_f32).
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
@@ -79,6 +98,8 @@ BATCH = 128  # paths D and E, members (the reference's 128-way batch)
 MEMBER_WORDS = 1 << 19  # paths D and E, words per member
 RAW_MEMBERS = 64  # path F, members (BASELINE.json config 2)
 RAW_CAP = 1 << 22  # path F, bytes of capacity per member; lengths in [CAP/4, CAP]
+RAGGED_MEMBERS = 64  # path H, members
+RAGGED_WORDS = (1 << 19, 1 << 21)  # path H, word counts drawn in this range
 ITERS = 20  # timed iterations per measurement
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # 32-bit non-tensor peak (fp32 rate; int32 is not faster)
@@ -150,6 +171,18 @@ KERNELS = {
         "dietgpu_tpu_torch/csrc/decode.cu",
         "dietgpu_tpu/ans/pallas_decode.py:392", 16, "F", "decode_raw",
     ),
+    "split_ragged": (
+        "dietgpu_tpu_torch/csrc/split.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "H", "split",
+    ),
+    "join": (
+        "dietgpu_tpu_torch/csrc/join.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:209", 3, "J", "join",
+    ),
+    "join_f32": (
+        "dietgpu_tpu_torch/csrc/join.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:399", 3, "J", "join_f32",
+    ),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -159,9 +192,18 @@ PATH_KERNELS = {
     "D": ("split", "encode", "assembly", "decode"),
     "E": ("split_f32", "encode", "assembly", "decode_f32"),
     "F": ("hist", "encode", "assembly", "decode_raw"),
+    "G": ("split", "encode", "assembly", "decode"),
+    "H": ("split", "encode", "assembly", "decode"),
+    "Hr": ("hist", "encode", "assembly", "decode_raw"),
+    "J": ("split", "join", "split_f32", "join_f32"),
 }
-# paths whose one compress and one decompress must launch each kernel once
-BATCHED_PATHS = ("D", "E", "F")
+# paths whose calls must launch each kernel once
+BATCHED_PATHS = ("D", "E", "F", "G", "H", "Hr", "J")
+
+
+def member_width(lengths):
+    """A ragged batch's member width: the longest, to a multiple of 4096."""
+    return -(-max(lengths) // 4096) * 4096
 
 
 def log(msg):
@@ -512,6 +554,110 @@ def phase2_batched_kernels(port, dev):
     log("  raw batches: a lying header or a corrupted payload fails only its member")
 
 
+def phase2_slice4(port, dev):
+    """The join kernels, the split kernels at ragged lengths (split_f32 in
+    its container mode too) and the API's ragged batches against their
+    plain versions, at small shapes."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import api, torch_api
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    F16, BF16, F32 = C.FLOAT_TYPE_FLOAT16, C.FLOAT_TYPE_BFLOAT16, C.FLOAT_TYPE_FLOAT32
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    for B, n4 in ((1, 1 << 18), (3, 1000), (3, 4097), (1, 1)):
+        e, c, h, lo = rand(B, n4 + 1), rand(B, n4 + 1), rand(B, n4 + 1), rand(B, 2 * n4 + 2)
+        for off in (0, 1):  # rows 16-byte aligned (vector form) or not
+            ev, cv, hv = e[:, off : off + n4], c[:, off : off + n4], h[:, off : off + n4]
+            lv = lo[:, 2 * off : 2 * off + 2 * n4]
+            for ft in (F16, BF16):
+                require_exact(f"join ft={ft} B={B} n4={n4} offset={off}",
+                              [(cuda_float.join_words_cuda(ev, cv, ft),
+                                cuda_float.join_words_plain(ev, cv, ft))])
+            require_exact(f"join_f32 B={B} n4={n4} offset={off}",
+                          [(cuda_float.join_words_f32_cuda(ev, lv, hv),
+                            cuda_float.join_words_f32_plain(ev, lv, hv))])
+
+    Lw = 1 << 16
+    lens = [Lw, 0, 1, 4095, Lw - 12345]
+    B = len(lens)
+    pairs, words = rand(B, Lw // 2), rand(B, Lw)
+    for ck in (False, True):
+        for ft in (F16, BF16):
+            require_exact(f"ragged split ft={ft} lengths={lens} ck={ck}",
+                          zip(cuda_float.split_words_batched_cuda(pairs, lens, ft, ck),
+                              cuda_float.split_words_batched_plain(pairs, lens, ft, ck)))
+        require_exact(f"ragged split_f32 lengths={lens} ck={ck}",
+                      zip(cuda_float.split_words_f32_batched_cuda(words, lens, ck),
+                          cuda_float.split_words_f32_batched_plain(words, lens, ck)))
+        R = codec.float_archive_buffer_bytes(F32, Lw) // 4
+        pk = rand(B, R)
+        pp = pk.clone()
+        require_exact(f"ragged split_f32 into containers lengths={lens} ck={ck}",
+                      zip(cuda_float.split_words_f32_batched_cuda(words, lens, ck,
+                                                                  planes_out=pk[:, 4:]),
+                          cuda_float.split_words_f32_batched_plain(words, lens, ck,
+                                                                   planes_out=pp[:, 4:])))
+
+    x = torch.randn((B, Lw), generator=gen, device=dev)
+    x = x * torch.arange(1, B + 1, device=dev)[:, None]
+    as_words = {F16: x.half().view(torch.int16), BF16: (x.view(torch.int32) >> 16).to(torch.int16),
+                F32: x.view(torch.int32)}
+    for ft, w in as_words.items():
+        for pb in C.SUPPORTED_PROB_BITS:
+            for ck in (False, True):
+                what = f"ft={ft} lengths={lens} pb={pb} ck={ck}"
+                ka, ks = codec.float_compress_batched(w, lens, ft, pb, ck)
+                pa, ps = codec.float_compress_batched_plain(w, lens, ft, pb, ck)
+                require_exact(f"ragged float batch {what}", member_pairs(ka, ks, pa, ps))
+                single = [codec.float_compress_padded(w[m], n, ft, pb, ck)
+                          for m, n in enumerate(lens)]
+                require_exact(f"  the same members through the single path {what}",
+                              member_pairs(ka, ks, torch.stack([a for a, _ in single]),
+                                           torch.stack([s for _, s in single])))
+                r = codec.float_decompress_batched(ka, ft, Lw, pb, ck)
+                out = r["out32"].view(w.dtype)
+                valid = torch.arange(Lw, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+                require(bool(r["success"].all()) and bool(r["checksum_ok"].all())
+                        and torch.equal(out, torch.where(valid, w, 0)),
+                        f"ragged float batch roundtrip {what}")
+
+    # the API on the card against the API on the CPU, float and raw
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in (0, 1, 4097, 70000)]
+    for dtype in (torch.float16, torch.bfloat16, torch.float32):
+        ts = [t.to(dtype) for t in xs]
+        for ck in (False, True):
+            kc, ksz, ktm = api.compress_data(True, [t.to(dev) for t in ts], ck)
+            pc, psz, ptm = api.compress_data(True, ts, ck)
+            require(ksz.tolist() == psz.tolist() and ktm == ptm, f"API sizes {dtype} ck={ck}")
+            require_exact(f"API float archives {dtype} ck={ck}",
+                          [(kc[b, :s].cpu(), pc[b, :s]) for b, s in enumerate(psz.tolist())])
+            outs = [torch.empty_like(t, device=dev) for t in ts]
+            st, _, _ = torch_api.decompress_data(
+                True, [kc[b, :s] for b, s in enumerate(ksz.tolist())], outs, ck)
+            require(st.tolist() == [1] * len(ts)
+                    and all(torch.equal(o.cpu(), t) for o, t in zip(outs, ts)),
+                    f"API float roundtrip {dtype} ck={ck}")
+    bs = [torch.from_numpy(np.minimum(rng.exponential(30, n), 255).astype(np.uint8))
+          for n in (0, 1, 4096, 10001)]
+    kc, ksz, _ = api.compress_data(False, [b.to(dev) for b in bs], True)
+    pc, psz, _ = api.compress_data(False, bs, True)
+    require_exact("API raw archives",
+                  [(ksz.cpu(), psz)] + [(kc[b, :s].cpu(), pc[b, :s])
+                                        for b, s in enumerate(psz.tolist())])
+    outs = api.decompress_data_simple(False, [kc[b, :s] for b, s in enumerate(ksz.tolist())], True)
+    require(all(torch.equal(o.cpu(), b) for o, b in zip(outs, bs)), "API raw roundtrip")
+    log("  API on the card: archives equal the CPU route's, roundtrips exact")
+
+
 def float_batch_path(port, name, ft, words, err):
     """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
     through float_compress_batched / float_decompress_batched. Fills err
@@ -676,6 +822,115 @@ def raw_batch_path(port, data, lengths, err):
     }
 
 
+def api_paths(port, bat, words_d, data_f, lengths_f, err):
+    """Paths G, H and Hr through the API. Fills err for split_ragged;
+    returns what phase 4 times."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import api, torch_api
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    BF16 = C.FLOAT_TYPE_BFLOAT16
+    dev = words_d.device
+
+    def rows(comp, sizes):
+        return [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+
+    def same_archives(what, comp, sizes, arcs32, ref_sizes):
+        require(sizes.tolist() == layout_i32(ref_sizes).tolist(), f"{what}: sizes differ")
+        ref = arcs32.view(torch.uint8)
+        require_exact(what, [(comp[b, :s], ref[b, :s]) for b, s in enumerate(sizes.tolist())])
+
+    def layout_i32(t):
+        return torch.where(t >= 1 << 31, t - (1 << 32), t)
+
+    # ---- path G: path D's members as 128 tensors through torch_api ----
+    log(f"# phase 3: path G, {BATCH} bf16 tensors of {MEMBER_WORDS} words through torch_api")
+    ts_g = [words_d[m].view(torch.bfloat16) for m in range(BATCH)]
+    outs_g = [torch.empty_like(t) for t in ts_g]
+
+    def run_g():
+        comp, sizes, _ = torch_api.compress_data(True, ts_g)
+        st, osz, _ = torch_api.decompress_data(True, rows(comp, sizes), outs_g)
+        return comp, sizes, st, osz
+
+    (comp_g, sizes_g, st, osz), launches_g = drive(port, "G", run_g)
+    require(st.tolist() == [1] * BATCH and osz.tolist() == [2 * MEMBER_WORDS] * BATCH,
+            "path G decompress failed its status")
+    require(all(torch.equal(o, t) for o, t in zip(outs_g, ts_g)), "path G roundtrip differs")
+    same_archives("path G archives vs path D's", comp_g, sizes_g, bat["D"]["arcs"],
+                  bat["D"]["sizes"])
+
+    # ---- path H: 64 ragged bf16 tensors through api ----
+    rng = np.random.default_rng(0)
+    lens_h = rng.integers(RAGGED_WORDS[0], RAGGED_WORDS[1] + 1, RAGGED_MEMBERS).tolist()
+    ts_h = []
+    for n in lens_h:
+        x = rng.standard_normal(n).astype(np.float32)
+        w = (x.view(np.uint32) >> 16).astype(np.uint16).view(np.int16)
+        ts_h.append(torch.from_numpy(w).to(dev).view(torch.bfloat16))
+    del x, w
+    log(f"# phase 3: path H, {RAGGED_MEMBERS} bf16 tensors of {sum(lens_h)} words in "
+        f"[{RAGGED_WORDS[0]}, {RAGGED_WORDS[1]}] through api")
+
+    def run_h():
+        comp, sizes, _ = api.compress_data(True, ts_h)
+        outs, st, osz, _ = api.decompress_data(True, rows(comp, sizes), ts_h)
+        return comp, sizes, outs, st, osz
+
+    (comp_h, sizes_h, outs, st, osz), launches_h = drive(port, "H", run_h)
+    require(st.tolist() == [1] * RAGGED_MEMBERS and osz.tolist() == [2 * n for n in lens_h],
+            "path H decompress failed its status")
+    require(all(torch.equal(o, t) for o, t in zip(outs, ts_h)), "path H roundtrip differs")
+    del outs
+    single = []
+    for t, n in zip(ts_h, lens_h):
+        w = torch.zeros(C.round_up(n, C.DEFAULT_BLOCK_SIZE), dtype=torch.int16, device=dev)
+        w[:n] = t.view(torch.int16)
+        a, size = codec.float_compress_padded(w, n, BF16)
+        single.append(a[: int(size) // 4].view(torch.uint8))
+    require(sizes_h.tolist() == [a.numel() for a in single], "path H sizes differ")
+    require_exact(f"path H archives vs {RAGGED_MEMBERS} single-tensor kernel calls",
+                  [(comp_h[b, :s], single[b]) for b, s in enumerate(sizes_h.tolist())])
+    del single
+    padded = torch.zeros((RAGGED_MEMBERS, member_width(lens_h)), dtype=torch.int16, device=dev)
+    for m, t in enumerate(ts_h):
+        padded[m, : lens_h[m]] = t.view(torch.int16)
+    pairs_h = padded.view(torch.int32)
+    del padded
+    err["split_ragged"] = require_exact(
+        "split_ragged, path H shape",
+        zip(cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16),
+            cuda_float.split_words_batched_plain(pairs_h, lens_h, BF16)))
+
+    # ---- path Hr: path F's members through api ----
+    ts_r = [data_f[m, :n] for m, n in enumerate(lengths_f)]
+    log(f"# phase 3: path Hr, path F's {len(ts_r)} raw members through api")
+
+    def run_hr():
+        comp, sizes, _ = api.compress_data(False, ts_r)
+        outs, st, osz, _ = api.decompress_data(False, rows(comp, sizes), ts_r)
+        return comp, sizes, outs, st, osz
+
+    (comp_r, sizes_r, outs, st, osz), launches_r = drive(port, "Hr", run_hr)
+    require(st.tolist() == [1] * len(ts_r) and osz.tolist() == lengths_f,
+            "path Hr decompress failed its status")
+    require(all(torch.equal(o, t) for o, t in zip(outs, ts_r)), "path Hr roundtrip differs")
+    del outs
+    same_archives("path Hr archives vs path F's", comp_r, sizes_r, bat["F"]["arcs"],
+                  bat["F"]["sizes"])
+    torch.cuda.empty_cache()
+    return {
+        "G": (ts_g, outs_g, comp_g, sizes_g, launches_g),
+        "H": (ts_h, lens_h, comp_h, sizes_h, launches_h),
+        "Hr": (ts_r, comp_r, sizes_r, launches_r),
+        "split": (lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16),
+                  lambda: cuda_float.split_words_batched_plain(pairs_h, lens_h, BF16)),
+    }
+
+
 def batch_inputs(dev):
     """Paths D and E's words (standard normal f32 from default_rng(0), and
     the same truncated to bf16), and path F's bytes and lengths."""
@@ -785,6 +1040,7 @@ def main():
 
     phase2_new_kernels(port, dev)
     phase2_batched_kernels(port, dev)
+    phase2_slice4(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 
@@ -917,6 +1173,29 @@ def main():
     err["decode_f32"] = e8
     torch.cuda.empty_cache()
 
+    # ---- 3. path J: the standalone join ----
+    log(f"# phase 3: path J, split and join back, bf16 and f32, {MWORDS}Mi words")
+
+    def path_j():
+        e, c, _, _ = one(cuda_float.split_words_batched_cuda(inputs[0][None], n, ft))
+        wj = port.join_words_packed(e, c, ft)
+        e32, lo, hi, _, _ = one(cuda_float.split_words_f32_batched_cuda(inputs_b[0][None], n))
+        return (e, c, wj), (e32, lo, hi, port.join_words_packed_f32(e32, lo, hi))
+
+    ((e_j, c_j, wj), (e32_j, lo_j, hi_j, wf)), launches_j = drive(port, "J", path_j)
+    require(torch.equal(wj, inputs[0]), "path J: the bf16 join differs from the input")
+    require(torch.equal(wf, inputs_b[0]), "path J: the f32 join differs from the input")
+    del wj, wf
+    err["join"] = require_exact("join, path J shape",
+                                [(cuda_float.join_words_cuda(e_j[None], c_j[None], ft),
+                                  cuda_float.join_words_plain(e_j[None], c_j[None], ft))])
+    err["join_f32"] = require_exact(
+        "join_f32, path J shape",
+        [(cuda_float.join_words_f32_cuda(e32_j[None], lo_j[None], hi_j[None]),
+          cuda_float.join_words_f32_plain(e32_j[None], lo_j[None], hi_j[None]))])
+    log("  roundtrips exact against the inputs")
+    torch.cuda.empty_cache()
+
     # ---- 3. path C: raw ANS ----
     L = RAW_BYTES
     log(f"# phase 3: path C, raw ANS {L} bytes, prob_bits 10, no checksum")
@@ -978,10 +1257,12 @@ def main():
     log(f"# phase 3: path F, raw ANS batch of {RAW_MEMBERS} members, "
         f"{sum(lengths_f)} bytes in [{RAW_CAP // 4}, {RAW_CAP}] each, prob_bits 10")
     bat["F"] = raw_batch_path(port, data_f, lengths_f, err)
+    gh = api_paths(port, bat, words_d, data_f, lengths_f, err)
 
     launches = {}
-    path_launches = {"A": launches_a, "B": launches_b, "C": launches_c,
-                     **{p: st["launches"] for p, st in bat.items()}}
+    path_launches = {"A": launches_a, "B": launches_b, "C": launches_c, "J": launches_j,
+                     **{p: st["launches"] for p, st in bat.items()},
+                     "G": gh["G"][-1], "H": gh["H"][-1], "Hr": gh["Hr"][-1]}
     for k, (_, _, _, path, kernel) in KERNELS.items():
         launches[k] = path_launches[path][kernel]
 
@@ -1083,6 +1364,40 @@ def main():
             f"({t_c1:.4f} ms), decompress {raw / t_d1 / 1e6:10.3f} GB/s ({t_d1:.4f} ms)")
         torch.cuda.empty_cache()
 
+    # the API paths and the joins
+    from dietgpu_tpu_torch import api, torch_api
+
+    ts_g, outs_g, comp_g, sizes_g, _ = gh["G"]
+    rows_g = [comp_g[b, :s] for b, s in enumerate(sizes_g.tolist())]
+    t_c = time_ms(lambda: torch_api.compress_data(True, ts_g), ITERS)
+    t_d = time_ms(lambda: torch_api.decompress_data(True, rows_g, outs_g), ITERS)
+    raw = BATCH * MEMBER_WORDS * 2
+    log(f"  path G torch_api compress   {raw / t_c / 1e6:10.3f} GB/s  ({t_c:.4f} ms)")
+    log(f"  path G torch_api decompress {raw / t_d / 1e6:10.3f} GB/s  ({t_d:.4f} ms, in place)")
+    ts_h, lens_h, comp_h, sizes_h, _ = gh["H"]
+    rows_h = [comp_h[b, :s] for b, s in enumerate(sizes_h.tolist())]
+    t_c = time_ms(lambda: api.compress_data(True, ts_h), ITERS)
+    t_d = time_ms(lambda: api.decompress_data(True, rows_h, ts_h), ITERS)
+    raw = 2 * sum(lens_h)
+    arc_bytes = int(sizes_h.sum())
+    log(f"  path H api compress   {raw / t_c / 1e6:10.3f} GB/s  ({t_c:.4f} ms; "
+        f"bytes bound {(raw + arc_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"ratio {arc_bytes / raw:.6f})")
+    log(f"  path H api decompress {raw / t_d / 1e6:10.3f} GB/s  ({t_d:.4f} ms)")
+    ts_r, comp_r, sizes_r, _ = gh["Hr"]
+    rows_r = [comp_r[b, :s] for b, s in enumerate(sizes_r.tolist())]
+    t_c = time_ms(lambda: api.compress_data(False, ts_r), ITERS)
+    t_d = time_ms(lambda: api.decompress_data(False, rows_r, ts_r), ITERS)
+    raw = sum(lengths_f)
+    log(f"  path Hr api compress   {raw / t_c / 1e6:10.3f} GB/s  ({t_c:.4f} ms)")
+    log(f"  path Hr api decompress {raw / t_d / 1e6:10.3f} GB/s  ({t_d:.4f} ms)")
+    del rows_g, rows_h, rows_r
+    torch.cuda.empty_cache()
+    t_j = time_ms(lambda: port.join_words_packed(e_j, c_j, ft), ITERS)
+    t_j32 = time_ms(lambda: port.join_words_packed_f32(e32_j, lo_j, hi_j), ITERS)
+    log(f"  path J join     {raw_bytes / t_j / 1e6:10.3f} GB/s of words  ({t_j:.4f} ms)")
+    log(f"  path J join_f32 {raw_b / t_j32 / 1e6:10.3f} GB/s of words  ({t_j32:.4f} ms)")
+
     counts = ke[1].long()
     emitted = int(counts.sum())
     padded_words = int(((counts + 7) // 8 * 8).clamp(max=2560).sum())
@@ -1107,6 +1422,12 @@ def main():
         "hist_batched": (sum(lengths_f) + RAW_MEMBERS * (8 + 4 * 256), sum(lengths_f)),
         "decode_raw_batched": (int(bat["F"]["sizes"].sum()) + RAW_MEMBERS * RAW_CAP,
                                sum(lengths_f)),
+        # the split at path H's ragged lengths: each member's words read,
+        # both full planes written; the joins at path J's shapes
+        "split_ragged": (2 * sum(lens_h) + RAGGED_MEMBERS * (2 * member_width(lens_h) + 4 * 256),
+                         RAGGED_MEMBERS * member_width(lens_h)),
+        "join": (4 * n, n),
+        "join_f32": (8 * n, n),
     }
     wb = inputs_b[0]
     runs = {
@@ -1135,6 +1456,12 @@ def main():
         "decode_f32_batched": bat["E"]["decode"],
         "hist_batched": bat["F"]["hist"],
         "decode_raw_batched": bat["F"]["decode"],
+        "split_ragged": gh["split"],
+        "join": (lambda: cuda_float.join_words_cuda(e_j[None], c_j[None], ft),
+                 lambda: cuda_float.join_words_plain(e_j[None], c_j[None], ft)),
+        "join_f32": (lambda: cuda_float.join_words_f32_cuda(e32_j[None], lo_j[None], hi_j[None]),
+                     lambda: cuda_float.join_words_f32_plain(e32_j[None], lo_j[None],
+                                                             hi_j[None])),
     }
     # one torch call computing the same function, where there is one
     library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}

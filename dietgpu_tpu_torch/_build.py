@@ -6,7 +6,8 @@ root of the checkout, named by the hash of its source, then loaded with
 ctypes. All sources are compiled in parallel, one ``nvcc`` each. Nothing is
 built when the package is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
-decode kernel), each with its own C entry point. Every kernel takes a
+decode kernel; ``join.cu`` the f16/bf16 and f32 joins), each with its own C
+entry point. Every kernel takes a
 batch of members and is launched once for the whole batch; a single
 tensor is a batch of one.
 
@@ -28,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("split", "split_f32", "hist", "encode", "assembly", "decode")
+SOURCES = ("split", "split_f32", "hist", "encode", "assembly", "decode", "join")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -42,11 +43,12 @@ _INT = ctypes.c_int
 # takes a batch of members; a single tensor is a batch of one.
 _ENTRY = {
     "split": (
-        "split", "dtt_split", (_VP, _LL, _LL, _LL, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
+        "split", "dtt_split",
+        (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
     "split_f32": (
         "split_f32", "dtt_split_f32",
-        (_VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _LL, _LL, _LL),
+        (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
     "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _LL)),
     "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)),
@@ -60,6 +62,8 @@ _ENTRY = {
     "decode_raw": (
         "decode", "dtt_decode_raw", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP),
     ),
+    "join": ("join", "dtt_join", (_VP, _VP, _LL, _LL, _INT, _VP, _LL, _LL, _LL)),
+    "join_f32": ("join", "dtt_join_f32", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _LL, _LL)),
 }
 KERNELS = tuple(_ENTRY)
 

@@ -82,9 +82,9 @@ def ans_encode_batched_into(
 ):
     """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
     int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
-    R) int32) at u32 offset `base32` (a multiple of 4), in place, for every
-    member at once: one encode launch, the sections of all members, one
-    assembly launch.
+    R) int32) at u32 offset `base32` (an int for every member or B host
+    ints, each a multiple of 4), in place, for every member at once: one
+    encode launch, the sections of all members, one assembly launch.
 
     `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
     copy on the device, if the caller has one (made here only when the
@@ -96,7 +96,7 @@ def ans_encode_batched_into(
     """
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    if base32 % 4:
+    if any(b % 4 for b in ([base32] if isinstance(base32, int) else base32)):
         raise ValueError("ans encode: the archive offset must be 16-byte aligned")
     # the kernels take one length (payload offset) when all members share it
     n = lengths[0]
@@ -217,9 +217,7 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, hist=No
     L = 4 * n4
     if B == 0 or L == 0 or L % C.DEFAULT_BLOCK_SIZE:
         raise ValueError(f"ans encode: {B} rows of {L} bytes, not a batch of 4096-byte blocks")
-    lengths = [int(n) for n in length] if hasattr(length, "__len__") else [int(length)] * B
-    if len(lengths) != B or not all(0 <= n <= L for n in lengths):
-        raise ValueError(f"ans encode: need {B} lengths in [0, {L}]")
+    lengths = layout.member_lengths(length, B, L, "ans encode")
     dev = data32.device
     lengths_t = None
     if not all(n == lengths[0] for n in lengths):

@@ -47,12 +47,7 @@ def histogram_u8_plain(data32, length, with_checksum=False):
 def _check_batched(data32, lengths):
     if data32.dtype != torch.int32 or data32.dim() != 2:
         raise ValueError("histogram: a batch is (B, n4) int32 packed bytes")
-    lengths = [int(n) for n in lengths]
-    if len(lengths) != data32.shape[0]:
-        raise ValueError("histogram: one length per member")
-    if not all(0 <= n <= 4 * data32.shape[1] for n in lengths):
-        raise ValueError(f"histogram: a length outside [0, {4 * data32.shape[1]}]")
-    return lengths
+    return layout.member_lengths(lengths, data32.shape[0], 4 * data32.shape[1], "histogram")
 
 
 def histogram_u8_batched_plain(data32, lengths, with_checksum=False, lengths_t=None):
@@ -77,16 +72,12 @@ def histogram_u8_batched_cuda(data32, lengths, with_checksum=False, lengths_t=No
         raise ValueError("histogram: the kernel needs rows of a multiple of 16 bytes")
     B = data32.shape[0]
     dev = data32.device
-    equal = all(n == lengths[0] for n in lengths)
-    if not equal:
-        if lengths_t is None:
-            lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
-        _build.check_cuda_tensor(lengths_t, "histogram lengths", torch.int64, B, align=8)
+    n, n_t = layout.device_lengths(lengths, lengths_t, dev, "histogram lengths")
     hist = torch.zeros((B, C.NUM_SYMBOLS), dtype=torch.int32, device=dev)
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
-        "hist", data32.data_ptr(), B, data32.shape[1] // 4, lengths[0] if equal else 0,
-        None if equal else lengths_t.data_ptr(), hist.data_ptr(),
+        "hist", data32.data_ptr(), B, data32.shape[1] // 4, n, layout.data_ptr(n_t),
+        hist.data_ptr(),
         cks.data_ptr() if with_checksum else None, data32.shape[1],
     )
     return hist, cks

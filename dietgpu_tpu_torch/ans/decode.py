@@ -22,6 +22,23 @@ W = C.NUM_INTERLEAVED
 MW = C.MAX_COMP_WORDS_PER_BLOCK
 
 
+def decode_scratch_bytes(max_size: int, num_in_batch: int = 1) -> int:
+    """Device scratch the reference reserves for a batch decode
+    (GpuANSDecode.cuh:484-504: a 2^probBits u32 table per member, sized for
+    probBits 11; :556-575: the two checksum vectors) at its 256-byte
+    granularity (StackDeviceMemory.h:24): the API's `temp_mem` for
+    decompress, as ``dietgpu_tpu.ans.decode`` reports it. `max_size` does
+    not enter it, as in the JAX package."""
+
+    def align(x):
+        return C.round_up(x, 256)
+
+    table_bytes = 4 * (1 << 11)
+    total = align(num_in_batch * table_bytes)
+    total += 2 * align(num_in_batch * 4)  # checksum + archive-checksum vecs
+    return total
+
+
 def build_decode_lut(pdf: torch.Tensor, prob_bits: int) -> torch.Tensor:
     """Packed decode LUT: (sminus << 20) | (pdf << 8) | sym, size
     2^prob_bits, int64 (reference TableT packing, GpuANSDecode.cuh:34-41);

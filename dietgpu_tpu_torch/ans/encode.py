@@ -42,6 +42,26 @@ def archive_buffer_bytes(padded_len: int) -> int:
     )
 
 
+def encode_scratch_bytes(max_size: int, num_in_batch: int = 1) -> int:
+    """Device scratch the reference reserves for a batch encode
+    (StackDeviceMemory in ansEncodeBatchDevice, GpuANSEncode.cuh:690-738,
+    at its 256-byte granularity, StackDeviceMemory.h:24): the API's
+    `temp_mem` for compress, as ``dietgpu_tpu.ans.encode`` reports it. The
+    port's allocator owns the real scratch."""
+
+    def align(x):
+        return C.round_up(x, 256)
+
+    max_blocks = C.div_up(max_size, C.DEFAULT_BLOCK_SIZE)
+    stride = 4 * W + C.raw_comp_block_max_size(C.DEFAULT_BLOCK_SIZE)
+    total = align(num_in_batch * C.NUM_SYMBOLS * 16)  # uint4 tables
+    total += align(num_in_batch * C.NUM_SYMBOLS * 4)  # histograms
+    total += align(num_in_batch * 4)  # checksums
+    total += align(num_in_batch * max_blocks * stride)  # uncoalesced blocks
+    total += 2 * align(num_in_batch * max_blocks * 4)  # words + prefix
+    return total
+
+
 def encode_table(pdf: torch.Tensor) -> torch.Tensor:
     """The kernel's (512,) int32 table: e1 for the 256 symbols, then magic;
     (B, 512) for a (B, 256) batch of pdfs."""
@@ -116,8 +136,9 @@ def write_sections_batched(
     arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum=False,
     checksums=None,
 ):
-    """The sections of B archives, archive m at u32 offset `base32` of row m
-    of `arcs` ((B, R) int32, contiguous).
+    """The sections of B archives, archive m at u32 offset base32[m] of row
+    m of `arcs` ((B, R) int32, contiguous); `base32` is an int for every
+    member or B host ints.
 
     `pdfs` is (B, 256); `states` (B * NBm, 32) and `counts` (B * NBm,) are
     the encode's outputs, member m's block b at row m * NBm + b, with a
@@ -128,7 +149,9 @@ def write_sections_batched(
 
     The geometry comes from the host lengths, so nothing is read back from
     the device; only B block counts, lengths and offsets go to it, and the
-    torch ops are the same few whatever B and the block count are. Every
+    torch ops are the same few whatever B and the block count are. Members
+    at one offset take their sections by slicing, members at their own
+    offsets by one scatter. Every
     row takes the states of all NBm blocks, then zeros up to 2
     round_up(NBm, 2) words past them; each member's blockWords are then
     scattered over its own states from word 32 nb on, zero past its blocks.
@@ -148,21 +171,22 @@ def write_sections_batched(
     dev = arcs.device
     NBm = counts.shape[0] // B
     lengths = np.asarray(lengths, dtype=np.int64).reshape(B)
+    base = np.broadcast_to(np.asarray(base32, dtype=np.int64), (B,))
     nbs = -(-lengths // C.DEFAULT_BLOCK_SIZE)
-    st32 = base32 + 136
+    st32 = base + 136
     bw32 = st32 + nbs * W
     ds32 = bw32 + 2 * (nbs + (nbs & 1))
     span = NBm * W + 2 * C.round_up(NBm, 2)
-    if st32 + span > R:
+    if int(st32.max()) + span > R:
         raise ValueError("write_sections: the rows are too short for the sections")
     # the host-known values in one copy: the header's words (the total and
     # checksum are filled in on the device), then the payload and blockWords
-    # offsets, and the archive bytes before the payload
+    # offsets, the archive bytes before the payload, and the archive offsets
     opts = prob_bits | (int(use_checksum) << 4)
-    head = np.zeros((11, B), np.int64)
-    head[0], head[1], head[2], head[4], head[8], head[9], head[10] = (
+    head = np.zeros((12, B), np.int64)
+    head[0], head[1], head[2], head[4], head[8], head[9], head[10], head[11] = (
         (C.ANS_MAGIC << 16) | C.ANS_VERSION, nbs, lengths, opts, ds32, bw32,
-        4 * (ds32 - base32))
+        4 * (ds32 - base), base)
     host = torch.from_numpy(head).to(dev)
 
     words = counts.view(B, NBm).long()
@@ -175,11 +199,16 @@ def write_sections_batched(
     if use_checksum:
         host[5] = layout.to_u32(checksums)
     pdfs = layout.to_u32(pdfs)
-    arcs[:, base32:st32] = layout.to_i32(
-        torch.cat([host[:8].T, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1)
-    )
-    arcs[:, st32 : st32 + NBm * W] = states.view(B, NBm * W)
-    arcs[:, st32 + NBm * W : st32 + span] = 0
+    sections = layout.to_i32(torch.cat([host[:8].T, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1))
+    if (base == base[0]).all():
+        b, s = int(base[0]), int(st32[0])
+        arcs[:, b:s] = sections
+        arcs[:, s : s + NBm * W] = states.view(B, NBm * W)
+        arcs[:, s + NBm * W : s + span] = 0
+    else:
+        zeros = torch.zeros((B, span - NBm * W), dtype=torch.int32, device=dev)
+        cols = host[11][:, None] + torch.arange(136 + span, device=dev)
+        arcs.scatter_(1, cols, torch.cat([sections, states.view(B, NBm * W), zeros], 1))
     # blockWords (x, y) = ((uncompressed bytes << 16) | words, prefix) for
     # the member's blocks, zero after them (the pair that makes the count
     # even among them); all below 2^31

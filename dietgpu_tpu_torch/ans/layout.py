@@ -1,4 +1,5 @@
-"""Byte <-> u32 views and the u32 conventions of the port.
+"""Byte <-> u32 views, the u32 conventions of the port, and the members'
+lengths as the batched kernels take them.
 
 torch has no full uint32 arithmetic, so the port stores u32 data as int32
 bit patterns (what the kernels read as ``uint32_t``) and computes on it in
@@ -8,6 +9,8 @@ tests run on are little-endian).
 """
 
 import torch
+
+from .. import _build
 
 U32_MASK = 0xFFFFFFFF
 
@@ -39,3 +42,31 @@ def as_i32(v: int) -> int:
     """A u32 Python int read as the signed int32 it is in the JAX package."""
     v &= U32_MASK
     return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def member_lengths(length, B: int, limit: int, what: str) -> list:
+    """B host ints from `length` (one int for every member, or B ints),
+    each in [0, limit]."""
+    lengths = [int(n) for n in length] if hasattr(length, "__len__") else [int(length)] * B
+    if len(lengths) != B or not all(0 <= n <= limit for n in lengths):
+        raise ValueError(f"{what}: need {B} lengths in [0, {limit}]")
+    return lengths
+
+
+def device_lengths(lengths: list, lengths_t, dev, what: str):
+    """What a batched kernel takes for the members' lengths: (the one
+    length, None) when they are all equal, else (0, their (B,) int64 copy
+    on the card): `lengths_t` if the caller has one, or made here. The
+    caller holds the returned tensor until the launch, so that the
+    allocator cannot hand its memory to another tensor first."""
+    if all(n == lengths[0] for n in lengths):
+        return lengths[0], None
+    if lengths_t is None:
+        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    _build.check_cuda_tensor(lengths_t, what, torch.int64, len(lengths), align=8)
+    return 0, lengths_t
+
+
+def data_ptr(t):
+    """A tensor's device address for a kernel argument, None for None."""
+    return None if t is None else t.data_ptr()

@@ -1,0 +1,211 @@
+// Standalone float join: the packed exponent and raw planes back to words.
+//
+// Replaces: dietgpu_tpu/floatcodec/pallas_float.py:_join_kernel
+// (join_words_pallas) and :_join_kernel_f32 (join_words_pallas_f32), the
+// reference's two-pass joinFloat (GpuFloatDecompress.cuh). The decompress
+// paths join inside the decode kernel (csrc/decode.cu); this kernel is the
+// planes -> words entry point on its own.
+//
+// Bound on the H100: bytes. f16/bf16: each word's exponent byte and raw
+// byte are read once (2 B) and the word written once (2 B), 4 B per word;
+// f32: exponent, high and low planes read once (4 B) and the word written
+// once (4 B), 8 B per word; all over 3.35 TB/s. A handful of byte
+// permutes per word is far below the operations bound.
+//
+// Design: a grid-stride elementwise pass. The unit is one u32 of the
+// exponent plane, i.e. 4 words. f16/bf16: that u32 and the matching u32 of
+// the nonComp plane become two output word pairs, each built by one
+// __byte_perm ((exp << 8) | raw per 16-bit half), then rotated right by
+// 1 within each half for bf16. f32: the exponent and high u32 are
+// interleaved by two __byte_perm, each word is completed with its low u16
+// by one more, then rotated right by 1 (__funnelshift_r). When every
+// plane's rows are 16-byte aligned, each thread takes 4 units at once: one
+// 16-byte load per plane (two for the f32 low plane) and 16-byte stores,
+// so every access is a full-width coalesced line; a unit past the last
+// whole 4 (an unaligned n4) takes the scalar form. Otherwise every unit
+// takes the scalar form: 4-byte loads and one 8-byte (f16/bf16) or 16-byte
+// (f32) store.
+//
+// Batched: grid y is the member. Member m reads row m of each plane (at its
+// own row stride, so a plane may sit inside a larger buffer) and writes row
+// m of the output.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t rotr16x2(uint32_t x) {
+  return ((x >> 1) & 0x7fff7fffu) | ((x << 15) & 0x80008000u);
+}
+
+// 4 words from one exponent u32 and one nonComp u32: two word pairs
+__device__ __forceinline__ uint2 join_half4(uint32_t e, uint32_t m, bool bf16) {
+  uint32_t p0 = __byte_perm(m, e, 0x5140);  // m0 e0 m1 e1
+  uint32_t p1 = __byte_perm(m, e, 0x7362);  // m2 e2 m3 e3
+  if (bf16) {
+    p0 = rotr16x2(p0);
+    p1 = rotr16x2(p1);
+  }
+  return make_uint2(p0, p1);
+}
+
+// 4 f32 words from one exponent u32, one high u32 and two low u32
+__device__ __forceinline__ uint4 join_f32x4(uint32_t e, uint32_t h, uint32_t lo0,
+                                            uint32_t lo1) {
+  const uint32_t hc0 = __byte_perm(h, e, 0x5140);  // h0 e0 h1 e1
+  const uint32_t hc1 = __byte_perm(h, e, 0x7362);  // h2 e2 h3 e3
+  uint4 r;
+  r.x = __byte_perm(lo0, hc0, 0x5410);
+  r.y = __byte_perm(lo0, hc0, 0x7632);
+  r.z = __byte_perm(lo1, hc1, 0x5410);
+  r.w = __byte_perm(lo1, hc1, 0x7632);
+  r.x = __funnelshift_r(r.x, r.x, 1);
+  r.y = __funnelshift_r(r.y, r.y, 1);
+  r.z = __funnelshift_r(r.z, r.z, 1);
+  r.w = __funnelshift_r(r.w, r.w, 1);
+  return r;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+join_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ nc_all,
+            long long n4, int bf16, uint32_t* __restrict__ out_all,
+            long long exp_stride32, long long nc_stride32, long long out_stride32) {
+  const long long m = blockIdx.y;
+  const uint32_t* __restrict__ exp = exp_all + m * exp_stride32;
+  const uint32_t* __restrict__ nc = nc_all + m * nc_stride32;
+  uint32_t* __restrict__ out = out_all + m * out_stride32;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  long long first = 0;
+  if (kVec) {
+    const long long n16 = n4 / 4;
+    const uint4* __restrict__ e4 = reinterpret_cast<const uint4*>(exp);
+    const uint4* __restrict__ m4 = reinterpret_cast<const uint4*>(nc);
+    uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out);
+    for (long long i = t; i < n16; i += stride) {
+      const uint4 e = e4[i];
+      const uint4 c = m4[i];
+      const uint2 a = join_half4(e.x, c.x, bf16);
+      const uint2 b = join_half4(e.y, c.y, bf16);
+      const uint2 d = join_half4(e.z, c.z, bf16);
+      const uint2 f = join_half4(e.w, c.w, bf16);
+      o4[2 * i] = make_uint4(a.x, a.y, b.x, b.y);
+      o4[2 * i + 1] = make_uint4(d.x, d.y, f.x, f.y);
+    }
+    first = 4 * n16;
+  }
+  uint2* __restrict__ o2 = reinterpret_cast<uint2*>(out);
+  for (long long j = first + t; j < n4; j += stride) {
+    o2[j] = join_half4(exp[j], nc[j], bf16);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+join_f32_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ lo_all,
+                const uint32_t* __restrict__ hi_all, long long n4,
+                uint32_t* __restrict__ out_all, long long exp_stride32,
+                long long lo_stride32, long long hi_stride32, long long out_stride32) {
+  const long long m = blockIdx.y;
+  const uint32_t* __restrict__ exp = exp_all + m * exp_stride32;
+  const uint32_t* __restrict__ lo = lo_all + m * lo_stride32;
+  const uint32_t* __restrict__ hi = hi_all + m * hi_stride32;
+  uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out_all + m * out_stride32);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  long long first = 0;
+  if (kVec) {
+    const long long n16 = n4 / 4;
+    const uint4* __restrict__ e4 = reinterpret_cast<const uint4*>(exp);
+    const uint4* __restrict__ h4 = reinterpret_cast<const uint4*>(hi);
+    const uint4* __restrict__ l4 = reinterpret_cast<const uint4*>(lo);
+    for (long long i = t; i < n16; i += stride) {
+      const uint4 e = e4[i];
+      const uint4 h = h4[i];
+      const uint4 la = l4[2 * i];
+      const uint4 lb = l4[2 * i + 1];
+      o4[4 * i] = join_f32x4(e.x, h.x, la.x, la.y);
+      o4[4 * i + 1] = join_f32x4(e.y, h.y, la.z, la.w);
+      o4[4 * i + 2] = join_f32x4(e.z, h.z, lb.x, lb.y);
+      o4[4 * i + 3] = join_f32x4(e.w, h.w, lb.z, lb.w);
+    }
+    first = 4 * n16;
+  }
+  for (long long j = first + t; j < n4; j += stride) {
+    o4[j] = join_f32x4(exp[j], hi[j], lo[2 * j], lo[2 * j + 1]);
+  }
+}
+
+long long grid_x(long long units, long long batch) {
+  int dev = 0;
+  int sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (units + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * 8 / batch;  // one wave in all
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return blocks;
+}
+
+bool aligned16(const void* p, long long stride32) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride32 * 4) % 16 == 0;
+}
+
+}  // namespace
+
+// `batch` members of n4 exponent u32 each (4 * n4 words). Member m's
+// exponent and nonComp planes (n4 u32 each, 4-byte aligned) are at u32
+// m * exp_stride32 and m * nc_stride32; its 2 * n4 output word pairs
+// (8-byte aligned) at u32 m * out_stride32. bf16 != 0 rotates each word
+// right by 1.
+extern "C" int dtt_join(const void* exp, const void* nc, long long batch, long long n4,
+                        int bf16, void* out, long long exp_stride32,
+                        long long nc_stride32, long long out_stride32, void* stream) {
+  if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
+  const bool vec = aligned16(exp, exp_stride32) && aligned16(nc, nc_stride32) &&
+                   aligned16(out, out_stride32);
+  const dim3 grid((unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch), (unsigned)batch);
+  const auto* e = static_cast<const uint32_t*>(exp);
+  const auto* c = static_cast<const uint32_t*>(nc);
+  auto* o = static_cast<uint32_t*>(out);
+  if (vec) {
+    join_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32);
+  } else {
+    join_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32);
+  }
+  return (int)cudaGetLastError();
+}
+
+// `batch` members of n4 exponent u32 each (4 * n4 f32 words). Member m's
+// exponent and high planes (n4 u32 each) and low plane (2 * n4 u32), all
+// 4-byte aligned, are at u32 m * exp_stride32, m * hi_stride32 and
+// m * lo_stride32; its 4 * n4 output words (16-byte aligned) at u32
+// m * out_stride32.
+extern "C" int dtt_join_f32(const void* exp, const void* lo, const void* hi,
+                            long long batch, long long n4, void* out,
+                            long long exp_stride32, long long lo_stride32,
+                            long long hi_stride32, long long out_stride32, void* stream) {
+  if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
+  const bool vec = aligned16(exp, exp_stride32) && aligned16(lo, lo_stride32) &&
+                   aligned16(hi, hi_stride32);
+  const dim3 grid((unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch), (unsigned)batch);
+  const auto* e = static_cast<const uint32_t*>(exp);
+  const auto* l = static_cast<const uint32_t*>(lo);
+  const auto* h = static_cast<const uint32_t*>(hi);
+  auto* o = static_cast<uint32_t*>(out);
+  if (vec) {
+    join_f32_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
+  } else {
+    join_f32_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
+  }
+  return (int)cudaGetLastError();
+}

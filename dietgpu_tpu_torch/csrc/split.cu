@@ -24,7 +24,8 @@
 // grid y is the member. Member m reads row m of the word pairs, writes row m
 // of the exponent plane and its nonComp plane into row m of the caller's
 // buffer (the members' containers), and counts into histogram row m and
-// checksum m. Every member has the same static length, as in the TPU path.
+// checksum m. Each member reads its own length from a device array (the
+// ragged batches of the API), or every member takes one length.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,12 +44,14 @@ __device__ __forceinline__ uint32_t fold8(uint32_t x) {
 
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const uint32_t* __restrict__ pairs_all, long long n_oct,
-             long long length, int bf16, uint32_t* __restrict__ exp_all,
+             long long length_all, const long long* __restrict__ lengths, int bf16,
+             uint32_t* __restrict__ exp_all,
              uint32_t* __restrict__ nc_all, unsigned* __restrict__ hist_all,
              unsigned* __restrict__ cks_all, long long in_stride32,
              long long exp_stride32, long long nc_stride32) {
   __shared__ unsigned sh[kWarps][256];
   const long long m = blockIdx.y;
+  const long long length = lengths == nullptr ? length_all : lengths[m];
   const uint4* __restrict__ pairs =
       reinterpret_cast<const uint4*>(pairs_all + m * in_stride32);
   uint2* __restrict__ exp_out = reinterpret_cast<uint2*>(exp_all + m * exp_stride32);
@@ -111,7 +114,8 @@ split_kernel(const uint32_t* __restrict__ pairs_all, long long n_oct,
 }
 
 int launch_split(const void* pairs, long long batch, long long n_oct,
-                 long long length, int bf16, void* exp_out, void* nc_out,
+                 long long length, const void* lengths, int bf16, void* exp_out,
+                 void* nc_out,
                  void* hist, void* cks, long long in_stride32,
                  long long exp_stride32, long long nc_stride32, void* stream) {
   if (batch <= 0) return (int)cudaGetLastError();
@@ -125,7 +129,8 @@ int launch_split(const void* pairs, long long batch, long long n_oct,
   if (blocks < 1) blocks = 1;
   split_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
                  (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(pairs), n_oct, length, bf16,
+      static_cast<const uint32_t*>(pairs), n_oct, length,
+      static_cast<const long long*>(lengths), bf16,
       static_cast<uint32_t*>(exp_out), static_cast<uint32_t*>(nc_out),
       static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32,
       exp_stride32, nc_stride32);
@@ -134,17 +139,18 @@ int launch_split(const void* pairs, long long batch, long long n_oct,
 
 }  // namespace
 
-// `batch` members of one static length. Member m's pairs (n_oct * 4 u32
+// `batch` members, member m of length lengths[m] (n_oct * 8 at most), or of
+// `length` each when `lengths` is null. Member m's pairs (n_oct * 4 u32
 // word pairs, 16-byte aligned), exponent plane and nonComp plane (n_oct * 8
 // bytes each, 8-byte aligned) are at u32 m * in_stride32, m * exp_stride32
-// and m * nc_stride32; words at index >= length are treated as zero. hist:
+// and m * nc_stride32; words at index >= its length are treated as zero. hist:
 // 256 u32 per member, zeroed by the caller. cks: one u32 per member, zeroed
 // by the caller, or null when no checksum is wanted.
 extern "C" int dtt_split(const void* pairs, long long batch, long long n_oct,
-                         long long length, int bf16, void* exp_out,
-                         void* nc_out, void* hist, void* cks,
+                         long long length, const void* lengths, int bf16,
+                         void* exp_out, void* nc_out, void* hist, void* cks,
                          long long in_stride32, long long exp_stride32,
                          long long nc_stride32, void* stream) {
-  return launch_split(pairs, batch, n_oct, length, bf16, exp_out, nc_out, hist,
-                      cks, in_stride32, exp_stride32, nc_stride32, stream);
+  return launch_split(pairs, batch, n_oct, length, lengths, bf16, exp_out, nc_out,
+                      hist, cks, in_stride32, exp_stride32, nc_stride32, stream);
 }

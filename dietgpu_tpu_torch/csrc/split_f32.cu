@@ -14,13 +14,14 @@
 // 4 exponent bytes (v >> 24), 4 low u16 (v & 0xffff) and 4 high bytes
 // ((v >> 16) & 0xff) as one 4-byte, one 8-byte and one 4-byte store, so a
 // warp's stores are whole coalesced lines. Words at index >= length are
-// masked to zero in-kernel. The codec points the low and high planes
-// straight into the float container, where the high plane starts right
-// after the low plane's archived 2 * round_up(n, 8) bytes and the ANS
-// archive right after the high plane's round_up(n, 16) bytes: a plane
-// stops at its archived length (lo_quads, hi_quads), because its zero tail
-// would overwrite the next section within the same launch. The histogram is
-// one 256-bin shared-memory copy per warp; lanes holding equal exponent
+// masked to zero in-kernel. The codec points the planes straight into the
+// float container (container mode, hi_out null): the low plane at lo_out,
+// the high plane right after its archived 2 * round_up(n, 8) bytes, and
+// the ANS archive right after the high plane's round_up(n, 16) bytes. There
+// a plane stops at its archived length, because its zero tail would
+// overwrite the next section within the same launch, and the high plane's
+// offset follows from the member's own length. The histogram is one
+// 256-bin shared-memory copy per warp; lanes holding equal exponent
 // bytes are merged with __match_any_sync first, since the exponents of real
 // data fall in a handful of values. Masked words are not counted. The XOR
 // checksum of the words is a per-thread register folded by warp shuffles
@@ -31,7 +32,8 @@
 // of the words, writes row m of the exponent plane, its low and high planes
 // into row m of the caller's buffer (the members' containers), each still
 // stopping at its archived length, and counts into histogram row m and
-// checksum m. Every member has the same static length, as in the TPU path.
+// checksum m. Each member reads its own length from a device array (the
+// ragged batches of the API), or every member takes one length.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,19 +52,31 @@ __device__ __forceinline__ uint32_t fold8(uint32_t x) {
 
 __global__ void __launch_bounds__(kThreads)
 split_f32_kernel(const uint32_t* __restrict__ words_all, long long n_quad,
-                 long long length, uint32_t* __restrict__ exp_all,
-                 uint32_t* __restrict__ lo_all, long long lo_quads,
-                 uint32_t* __restrict__ hi_all, long long hi_quads,
-                 unsigned* __restrict__ hist_all, unsigned* __restrict__ cks_all,
+                 long long length_all, const long long* __restrict__ lengths,
+                 uint32_t* __restrict__ exp_all, uint32_t* __restrict__ lo_all,
+                 uint32_t* __restrict__ hi_all, unsigned* __restrict__ hist_all,
+                 unsigned* __restrict__ cks_all,
                  long long in_stride32, long long exp_stride32,
                  long long plane_stride32) {
   __shared__ unsigned sh[kWarps][256];
   const long long m = blockIdx.y;
+  const long long length = lengths == nullptr ? length_all : lengths[m];
   const uint4* __restrict__ words =
       reinterpret_cast<const uint4*>(words_all + m * in_stride32);
   uint32_t* __restrict__ exp_out = exp_all + m * exp_stride32;
-  uint2* __restrict__ lo_out = reinterpret_cast<uint2*>(lo_all + m * plane_stride32);
-  uint32_t* __restrict__ hi_out = hi_all + m * plane_stride32;
+  uint32_t* const lo_row = lo_all + m * plane_stride32;
+  uint2* __restrict__ lo_out = reinterpret_cast<uint2*>(lo_row);
+  uint32_t* __restrict__ hi_out;
+  long long lo_quads = n_quad;
+  long long hi_quads = n_quad;
+  if (hi_all == nullptr) {  // container mode: the archived lengths only
+    const long long lo32 = (length + 7) / 8 * 4;  // round_up(n, 8) / 2
+    hi_out = lo_row + lo32;
+    lo_quads = lo32 / 2;
+    hi_quads = (length + 15) / 16 * 4;  // round_up(n, 16) / 4
+  } else {
+    hi_out = hi_all + m * plane_stride32;
+  }
   unsigned* __restrict__ hist = hist_all + 256 * m;
   unsigned* __restrict__ cks = cks_all == nullptr ? nullptr : cks_all + m;
   for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
@@ -123,9 +137,9 @@ split_f32_kernel(const uint32_t* __restrict__ words_all, long long n_quad,
 }
 
 int launch_split_f32(const void* words, long long batch, long long n_quad,
-                     long long length, void* exp_out, void* lo_out,
-                     long long lo_quads, void* hi_out, long long hi_quads,
-                     void* hist, void* cks, long long in_stride32,
+                     long long length, const void* lengths, void* exp_out,
+                     void* lo_out, void* hi_out, void* hist, void* cks,
+                     long long in_stride32,
                      long long exp_stride32, long long plane_stride32,
                      void* stream) {
   if (batch <= 0) return (int)cudaGetLastError();
@@ -140,8 +154,8 @@ int launch_split_f32(const void* words, long long batch, long long n_quad,
   split_f32_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
                      (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(words), n_quad, length,
-      static_cast<uint32_t*>(exp_out), static_cast<uint32_t*>(lo_out),
-      lo_quads, static_cast<uint32_t*>(hi_out), hi_quads,
+      static_cast<const long long*>(lengths), static_cast<uint32_t*>(exp_out),
+      static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
       static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32,
       exp_stride32, plane_stride32);
   return (int)cudaGetLastError();
@@ -149,21 +163,26 @@ int launch_split_f32(const void* words, long long batch, long long n_quad,
 
 }  // namespace
 
-// `batch` members of one static length. Member m's words (n_quad * 4 u32,
+// `batch` members, member m of length lengths[m] (4 * n_quad at most), or of
+// `length` each when `lengths` is null. Member m's words (n_quad * 4 u32,
 // 16-byte aligned) and exponent plane (n_quad u32, 4 exponent bytes each)
-// are at u32 m * in_stride32 and m * exp_stride32; words at index >= length
-// are treated as zero. Its low plane (8-byte aligned) receives quads [0,
-// lo_quads) (4 u16 each) at lo_out + m * plane_stride32, its high plane
-// quads [0, hi_quads) (4 bytes each) at hi_out + m * plane_stride32. hist:
-// 256 u32 per member, zeroed by the caller. cks: one u32 per member, zeroed
-// by the caller, or null when no checksum is wanted.
+// are at u32 m * in_stride32 and m * exp_stride32; words at index >= its
+// length are treated as zero. Its low plane (8-byte aligned; 4 u16 a quad)
+// starts at lo_out + m * plane_stride32. With hi_out given, its high plane
+// (4 bytes a quad) starts at hi_out + m * plane_stride32 and both planes get
+// all n_quad quads; with hi_out null (container mode), the low plane gets
+// quads [0, round_up(n, 8) / 4) and the high plane quads
+// [0, round_up(n, 16) / 4) right after it, at u32 round_up(n, 8) / 2 past
+// the low plane's start. hist: 256 u32 per member, zeroed by the caller.
+// cks: one u32 per member, zeroed by the caller, or null when no checksum
+// is wanted.
 extern "C" int dtt_split_f32(const void* words, long long batch,
-                             long long n_quad, long long length, void* exp_out,
-                             void* lo_out, long long lo_quads, void* hi_out,
-                             long long hi_quads, void* hist, void* cks,
+                             long long n_quad, long long length,
+                             const void* lengths, void* exp_out, void* lo_out,
+                             void* hi_out, void* hist, void* cks,
                              long long in_stride32, long long exp_stride32,
                              long long plane_stride32, void* stream) {
-  return launch_split_f32(words, batch, n_quad, length, exp_out, lo_out,
-                          lo_quads, hi_out, hi_quads, hist, cks, in_stride32,
-                          exp_stride32, plane_stride32, stream);
+  return launch_split_f32(words, batch, n_quad, length, lengths, exp_out, lo_out,
+                          hi_out, hist, cks, in_stride32, exp_stride32,
+                          plane_stride32, stream);
 }

@@ -16,13 +16,15 @@ Compress runs the split kernel (which writes the raw planes straight into
 the container), quantizes the exponent histogram, then encodes the
 exponent plane into the container right after the planes. Decompress is
 one fused decode+join kernel on the container. float_compress_batched and
-float_decompress_batched do the same for B members, rows of one buffer,
-with one launch of each kernel; a single tensor is a batch of one. Tensors
-on the card go through the kernels, tensors on the CPU through their plain
-versions; nothing else selects the path. float_compress_padded_plain is
-the plain pipeline on any device, the reference for the kernel path.
+float_decompress_batched do the same for B members of ragged lengths, rows
+of one buffer, with one launch of each kernel; a single tensor is a batch
+of one. Tensors on the card go through the kernels, tensors on the CPU
+through their plain versions; nothing else selects the path.
+float_compress_padded_plain is the plain pipeline on any device, the
+reference for the kernel path.
 """
 
+import numpy as np
 import torch
 
 from .. import constants as C
@@ -141,31 +143,34 @@ def float_decompress_padded(
     }
 
 
-# ---- batched: B members of one static length, one launch per kernel ----
+# ---- batched: B members, ragged lengths, one launch per kernel ----
 
 
 def float_compress_batched(
     words: torch.Tensor,
-    length: int,
+    length,
     float_type: int,
     prob_bits: int = C.DEFAULT_PROB_BITS,
     use_checksum: bool = False,
 ):
-    """Compress B float tensors of one static length, each with its own
-    probability table, with one launch of each kernel whatever B is.
+    """Compress B float tensors, each with its own probability table, with
+    one launch of each kernel whatever B is.
 
     Counterpart of
-    ``dietgpu_tpu.floatcodec.pallas_codec.float_compress_batched_pallas``.
-    `words` is (B, Lw/2) int32 word pairs or (B, Lw) int16/uint16 words for
-    f16/bf16, (B, Lw) int32 words or float32 values for f32; Lw a positive
-    multiple of 4096. `length` is every member's word count, an int in
-    [0, Lw].
+    ``dietgpu_tpu.floatcodec.pallas_codec.float_compress_batched_pallas``
+    (one static length), and of the JAX API's vmapped single-tensor
+    compress (``api._batch_float_encode``) for ragged members. `words` is
+    (B, Lw/2) int32 word pairs or (B, Lw) int16/uint16 words for f16/bf16,
+    (B, Lw) int32 words or float32 values for f32; Lw a positive multiple
+    of 4096. `length` is the members' word counts: an int for every member,
+    or B ints, each in [0, Lw].
 
     Returns (archives (B, F/4) int32, sizes (B,) int64 bytes), F =
     float_archive_buffer_bytes(float_type, Lw): row m is member m's
     container, laid out as :func:`float_compress_padded` lays out one, and
     its bytes [0, sizes[m]) equal the JAX package's archive for member m.
-    The split kernel writes the raw planes straight into the rows, and the
+    Each member's ANS archive starts at its own 4 + plane32(n_m) u32. The
+    split kernel writes the raw planes straight into the rows, and the
     batched assembly the payloads; the torch ops between the kernels are
     the same few whatever B is.
     """
@@ -176,7 +181,7 @@ def float_compress_batched(
 
 def float_compress_batched_plain(
     words: torch.Tensor,
-    length: int,
+    length,
     float_type: int,
     prob_bits: int = C.DEFAULT_PROB_BITS,
     use_checksum: bool = False,
@@ -192,8 +197,6 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain)
         raise ValueError(f"float type {float_type} is not f16/bf16/f32")
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    if not isinstance(length, int):
-        raise ValueError("batched float compress needs one static length (an int)")
     if words.dim() != 2 or words.shape[0] == 0 or not words.is_contiguous():
         raise ValueError("float codec: a batch is a contiguous (B, ...) tensor of words, B > 0")
     B = words.shape[0]
@@ -201,42 +204,54 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain)
     dev = words.device
     f32 = float_type == C.FLOAT_TYPE_FLOAT32
     Lw = words.shape[1] if f32 else 2 * words.shape[1]
+    lengths = layout.member_lengths(length, B, Lw, "float compress")
+    lens = np.asarray(lengths, np.int64)
+    # each member's ANS archive follows its own raw planes
+    base = 4 + (lens + 15) // 16 * 4
+    if f32:
+        base += (lens + 7) // 8 * 4
+    header = np.zeros((4, B), np.int64)
+    header[0] = (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION
+    header[1] = lens
+    header[2] = (float_type & 0xF) | (int(use_checksum) << 4)
     arcs = torch.empty(
         (B, float_archive_buffer_bytes(float_type, Lw) // 4), dtype=torch.int32, device=dev
     )
+    if all(n == lengths[0] for n in lengths):
+        n, lengths_t, base32 = lengths[0], None, int(base[0])
+        base_t = base32
+        arcs[:, :4] = torch.tensor([layout.as_i32(int(v)) for v in header[:, 0]],
+                                   dtype=torch.int32, device=dev)
+    else:  # the ragged geometry in one copy: header, lengths, bases
+        host = torch.from_numpy(np.concatenate([header, lens[None], base[None]])).to(dev)
+        arcs[:, :4] = layout.to_i32(host[:4].T)
+        n = lengths_t = host[4]
+        base32, base_t = base.tolist(), host[5]
     if f32:
         split_fn = (
             cuda_float.split_words_f32_batched_plain if plain
             else cuda_float.split_words_f32_batched_cuda
         )
-        hi_base = 4 + C.round_up(length, 8) // 2
         exp32, _, _, hist, cks = split_fn(
-            words, length, use_checksum,
-            lo_out=arcs[:, 4 : 4 + Lw // 2], hi_out=arcs[:, hi_base : hi_base + Lw // 4],
+            words, lengths, use_checksum, planes_out=arcs[:, 4:], lengths_t=lengths_t,
         )
-        base = hi_base + C.round_up(length, 16) // 4
     else:
         split_fn = (
             cuda_float.split_words_batched_plain if plain
             else cuda_float.split_words_batched_cuda
         )
         exp32, _, hist, cks = split_fn(
-            words, length, float_type, use_checksum, nc_out=arcs[:, 4 : 4 + Lw // 4],
+            words, lengths, float_type, use_checksum, nc_out=arcs[:, 4 : 4 + Lw // 4],
+            lengths_t=lengths_t,
         )
-        base = 4 + C.round_up(length, 16) // 4
-    pdfs = stats.normalize_probs(hist, length, prob_bits)
-
-    header = [(C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION, length,
-              (float_type & 0xF) | (int(use_checksum) << 4), 0]
-    arcs[:, :4] = torch.tensor([layout.as_i32(v) for v in header], dtype=torch.int32,
-                               device=dev)
+    pdfs = stats.normalize_probs(hist, n, prob_bits)
     if use_checksum:
         arcs[:, 3] = cks
 
     ans_sizes = cuda_encode.ans_encode_batched_into(
-        arcs, base, exp32, [length] * B, prob_bits, pdfs, plain=plain
+        arcs, base32, exp32, lengths, prob_bits, pdfs, plain=plain, lengths_t=lengths_t
     )
-    return arcs, ans_sizes + 4 * base
+    return arcs, ans_sizes + 4 * base_t
 
 
 def float_decompress_batched(

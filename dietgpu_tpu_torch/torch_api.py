@@ -1,0 +1,159 @@
+"""The ten ops with the reference's tensor contract, on the card or the CPU.
+
+Counterpart of ``dietgpu_tpu.torch_api``, the drop-in analogue of the
+reference's ``torch.ops.dietgpu.*`` custom ops (DietGpu.cpp:915-972): the
+same ten operations on ``torch.Tensor``s, as a thin layer over the port's
+:mod:`.api`. Where the JAX package's front-end copies host tensors into
+JAX through numpy, this one takes the tensors where they are: on the card
+every tensor stays on the card and goes through the CUDA kernels, on the
+CPU through their plain versions.
+
+Contract, as in ``dietgpu_tpu.torch_api``:
+  * no CUDA stream or temp-memory tensor arguments: the allocator owns
+    scratch, and the reported ``temp_mem_used`` is the reference's
+    accounting;
+  * ``decompress_data[_split_size]`` write into ``ts_out`` / ``t_out`` in
+    place, only the members whose status is 1, and return (status, sizes,
+    temp_mem_used) in place of out-parameter tensors;
+  * ``max_*_compressed_output_size`` return (size, B), the reverse of
+    :mod:`.api`'s (B, size).
+"""
+
+from typing import Sequence
+
+import torch
+
+from . import api
+from . import constants as C
+
+
+def _ints(split_sizes):
+    if isinstance(split_sizes, torch.Tensor):
+        return split_sizes.tolist()
+    return split_sizes
+
+
+# ---------------------------------------------------------------------------
+# size queries (DietGpu.cpp max_* ops)
+# ---------------------------------------------------------------------------
+
+
+def max_any_compressed_size(nbytes: int) -> int:
+    return api.max_any_compressed_size(nbytes)
+
+
+def max_float_compressed_size(dtype: torch.dtype, size: int) -> int:
+    return api.max_float_compressed_size(dtype, size)
+
+
+def max_any_compressed_output_size(ts: Sequence[torch.Tensor]):
+    B, size = api.max_any_compressed_output_size(ts)
+    return size, B
+
+
+def max_float_compressed_output_size(ts: Sequence[torch.Tensor]):
+    B, size = api.max_float_compressed_output_size(ts)
+    return size, B
+
+
+# ---------------------------------------------------------------------------
+# compress
+# ---------------------------------------------------------------------------
+
+
+def compress_data(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """Compress a batch. Returns (comp uint8 (B, bufsize), sizes int32 (B,),
+    temp_mem_used int); row b's archive is comp[b, :sizes[b]]
+    (DietGpu.cpp:149-308)."""
+    return api.compress_data(compress_as_float, ts_in, checksum, prob_bits)
+
+
+def compress_data_split_size(
+    compress_as_float: bool,
+    t_in: torch.Tensor,
+    split_sizes: Sequence[int] | torch.Tensor,
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """Compress consecutive splits of one flat tensor (DietGpu.cpp:310-460).
+    Interior split starts must be 4-byte aligned."""
+    return api.compress_data_split_size(
+        compress_as_float, t_in, _ints(split_sizes), checksum, prob_bits
+    )
+
+
+def compress_data_simple(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """Convenience tier: exact-size archive tensors (DietGpu.cpp:462-522)."""
+    return api.compress_data_simple(compress_as_float, ts_in, checksum, prob_bits)
+
+
+# ---------------------------------------------------------------------------
+# decompress
+# ---------------------------------------------------------------------------
+
+
+def _write_ok(dsts, srcs, status) -> None:
+    """Copy each decoded member into its destination where status is 1, in
+    one fused copy."""
+    keep = [m for m, ok in enumerate(status.tolist()) if ok]
+    if keep:
+        torch._foreach_copy_([dsts[m] for m in keep], [srcs[m] for m in keep])
+
+
+def decompress_data(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    ts_out: Sequence[torch.Tensor],
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """Decompress archives INTO ts_out (in place). Returns (status uint8
+    (B,), sizes int32 (B,), temp_mem_used). status[b] = 0 with the required
+    byte count in sizes[b] when ts_out[b] is too small, and ts_out[b] is
+    then left as it was; a checksum mismatch raises (DietGpu.cpp:530-677)."""
+    outs, status, sizes, tm = api.decompress_data(
+        compress_as_float, ts_in, ts_out, checksum, prob_bits
+    )
+    _write_ok(ts_out, outs, status)
+    return status, sizes, tm
+
+
+def decompress_data_split_size(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    t_out: torch.Tensor,
+    split_sizes: Sequence[int] | torch.Tensor,
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """Decompress a batch into consecutive splits of t_out (in place), each
+    split written only where its member's status is 1
+    (DietGpu.cpp:679-819). Returns (status, sizes, temp_mem_used)."""
+    if not t_out.is_contiguous():
+        raise ValueError("decompress_data_split_size: t_out must be contiguous")
+    pieces = api._split_pieces(t_out.view(-1), _ints(split_sizes), "output")
+    outs, status, sizes, tm = api.decompress_data(
+        compress_as_float, ts_in, pieces, checksum, prob_bits
+    )
+    _write_ok(pieces, outs, status)
+    return status, sizes, tm
+
+
+def decompress_data_simple(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    checksum: bool = False,
+):
+    """Size-discovery tier: allocates exact outputs from the archive headers
+    and decompresses (DietGpu.cpp:821-911)."""
+    return api.decompress_data_simple(compress_as_float, ts_in, checksum)

@@ -309,3 +309,6 @@ def test_entry_argument_types_match_the_c_signatures():
         params = re.search(rf'extern "C" int {sym}\(([^)]*)\)', text).group(1)
         types = [re.sub(r"\s+\w+$", "", p.strip()) for p in params.split(",")]
         assert [ctype[t] for t in types] == [*argtypes, ctypes.c_void_p], name
+    # every source is built, and the new and changed entry points are bound
+    assert {source for source, _, _ in _build._ENTRY.values()} == set(_build.SOURCES)
+    assert {"join", "join_f32", "split", "split_f32"} <= set(_build._ENTRY)

@@ -193,7 +193,7 @@ def test_decompress_batched_member_faults_stay_in_their_member(ft):
 def test_batched_float_entry_points_reject_bad_input():
     w = torch.zeros((2, LW), dtype=torch.int16)
     with pytest.raises(ValueError):
-        port.float_compress_batched(w, [LW, LW], BF16)  # one static length only
+        port.float_compress_batched(w, [LW], BF16)  # one length per member
     with pytest.raises(ValueError):
         port.float_compress_batched(w, LW + 1, BF16)
     with pytest.raises(ValueError):

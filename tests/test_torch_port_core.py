@@ -76,7 +76,7 @@ def test_import_hygiene_no_jax():
         sys.meta_path.insert(0, Block())
         import torch
         import dietgpu_tpu_torch as port
-        from dietgpu_tpu_torch import interop  # noqa: F401
+        from dietgpu_tpu_torch import api, headers, interop, torch_api  # noqa: F401
         from dietgpu_tpu_torch.floatcodec import codec
 
         x = torch.randn(5000, generator=torch.Generator().manual_seed(1))
@@ -90,6 +90,19 @@ def test_import_hygiene_no_jax():
         assert bool(res["success"]) and bool(res["checksum_ok"])
         assert torch.equal(res["out"][:4000], data[:4000])
         assert int(port.histogram_u8(data, 4000).sum()) == 4000
+        ts = [x[:n].to(torch.bfloat16) for n in (0, 1, 4097)]
+        comp, sizes, _ = api.compress_data(True, ts, checksum=True)
+        outs = [torch.empty_like(t) for t in ts]
+        status, _, _ = torch_api.decompress_data(
+            True, [comp[i, : int(sizes[i])] for i in range(3)], outs, checksum=True)
+        assert status.tolist() == [1, 1, 1]
+        assert all(torch.equal(o, t) for o, t in zip(outs, ts))
+        arcs = torch_api.compress_data_simple(False, [data[:100], data[:5000]])
+        assert all(torch.equal(o, d) for o, d in zip(
+            api.decompress_data_simple(False, arcs), (data[:100], data[:5000])))
+        e = torch.arange(16, dtype=torch.int32)
+        assert port.join_words_packed(e, e, 2).shape == (32,)
+        assert port.join_words_packed_f32(e, torch.cat([e, e]), e).shape == (64,)
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "dietgpu_tpu")]
         print("OK")
         """

@@ -152,7 +152,7 @@ def test_convenience_entry_points_cpu(monkeypatch):
         port.float_decompress(arc)
     assert set(port.kernel_launches()) == {
         "split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
-        "decode_raw",
+        "decode_raw", "join", "join_f32",
     }
 
 

@@ -6,8 +6,11 @@ and decompresses 128Mi bf16 words (made as bench.py makes them), path B
 128Mi f32 words (standard normal), path C encodes and decodes 2^28
 exponential bytes (as benchmarks/sweep.py makes them); the batched paths
 D (128 bf16 members of 512Ki words), E (the same in f32) and F (64 raw
-members of 1-4 MiB, ragged) as chip_smoke.py makes them. For each call it
-reports:
+members of 1-4 MiB, ragged) as chip_smoke.py makes them; and the API
+paths: G (D's members as 128 tensors through ``torch_api``, decompressed
+in place) and H (64 ragged bf16 tensors of 512Ki-2Mi words through
+``api``); E's split alone, into separate planes; and the joins of path J
+(A's and B's split planes back into words). For each call it reports:
 
 - wall: CUDA-event time of the call, synchronised, averaged;
 - enqueue: host time until the call returns, before synchronising;
@@ -38,6 +41,7 @@ from pathlib import Path
 MWORDS = 128  # bench.py's size, Mi words
 BATCH, MEMBER_WORDS = 128, 1 << 19  # paths D and E
 RAW_MEMBERS, RAW_CAP = 64, 1 << 22  # path F
+RAGGED_MEMBERS, RAGGED_WORDS = 64, (1 << 19, 1 << 21)  # path H
 ITERS = 10
 
 
@@ -58,6 +62,7 @@ def main():
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import dietgpu_tpu_torch as port
+    from dietgpu_tpu_torch import api, torch_api
     from dietgpu_tpu_torch import constants as C
 
     card = _card()
@@ -93,6 +98,22 @@ def main():
     arcs_e, _ = port.float_compress_batched(words_e, Lm, f32, 10, False)
     arcs_f, _ = port.ans_encode_batched(data_f, lengths, None, 10, False)
     words_d2, data_f2 = words_d[:2], data_f[:2]  # sliced here, not inside the profiled calls
+    ts_g = [words_d[m].view(torch.bfloat16) for m in range(BATCH)]
+    outs_g = [torch.empty_like(t) for t in ts_g]
+    comp, sizes, _ = torch_api.compress_data(True, ts_g)
+    rows_g = [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+    rng = np.random.default_rng(0)
+    ts_h = []
+    for k in rng.integers(RAGGED_WORDS[0], RAGGED_WORDS[1] + 1, RAGGED_MEMBERS).tolist():
+        xh = rng.standard_normal(k).astype(np.float32)
+        wh = (xh.view(np.uint32) >> 16).astype(np.uint16).view(np.int16)
+        ts_h.append(torch.from_numpy(wh).cuda().view(torch.bfloat16))
+    comp, sizes, _ = api.compress_data(True, ts_h)
+    rows_h = [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    planes = [x[0] for x in cuda_float.split_words_batched_cuda(words[None], n, bf16)[:2]]
+    planes_f32 = [x[0] for x in cuda_float.split_words_f32_batched_cuda(words_f32[None], n)[:3]]
 
     calls = {
         "compress": lambda: port.float_compress_padded(words, n, bf16, 10, False),
@@ -113,6 +134,13 @@ def main():
         "F encode": lambda: port.ans_encode_batched(data_f, lengths, None, 10, False),
         "F encode B=2": lambda: port.ans_encode_batched(data_f2, lengths[:2], None, 10, False),
         "F decode": lambda: port.ans_decode_batched(arcs_f, 10, RAW_CAP),
+        "G compress": lambda: torch_api.compress_data(True, ts_g),
+        "G decompress": lambda: torch_api.decompress_data(True, rows_g, outs_g),
+        "H compress": lambda: api.compress_data(True, ts_h),
+        "H decompress": lambda: api.decompress_data(True, rows_h, ts_h),
+        "E split": lambda: cuda_float.split_words_f32_batched_cuda(words_e, Lm),
+        "J join": lambda: port.join_words_packed(*planes, bf16),
+        "J join_f32": lambda: port.join_words_packed_f32(*planes_f32),
     }
     report = {"card": card, "n_words": n}
     for name, fn in calls.items():
