@@ -9,7 +9,10 @@ Phases; any failure raises, so the script exits non-zero and prints no
 result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
-               nvcc for sm_90a, all in parallel, into ``build/``;
+               nvcc for sm_90a, all in parallel, into ``build/``, and
+               prints the resources of the hist and decode kernels
+               (registers, static and dynamic shared bytes, spill bytes,
+               threads and CTAs per SM) on progress lines;
 2. kernels  -- each of the ten kernels (split, split_f32, hist, encode,
                assembly, decode in three configurations, join in two;
                every one takes a batch, a single tensor being a batch of
@@ -19,8 +22,14 @@ result line:
                tensors, B = 1, members of one block, ragged raw and float
                lengths, joins on unaligned rows; with a lying header and
                a corrupted payload for each decode (in one member of a
-               batch: only it may fail); and the API on the card against
-               its CPU route;
+               batch: only it may fail); the API on the card against
+               its CPU route; and hist and decode on the inputs their
+               designs are at risk on: constant bytes at path C's size,
+               alternating values, empty and 1-byte members; maximal
+               streams, ragged last steps, one-block members, odd stream
+               starts, rows that are not 16-byte aligned, and lying and
+               corrupted members, outputs and status equal to the plain
+               version's;
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -658,6 +667,156 @@ def phase2_slice4(port, dev):
     log("  API on the card: archives equal the CPU route's, roundtrips exact")
 
 
+def phase2_slice5(port, dev):
+    """The redesigned hist and decode kernels against their plain versions
+    on the inputs the designs are at risk on, bit-exact (outputs, status
+    and digest): constant bytes at path C's size (a bin of 2^28 counts),
+    two alternating values, ragged batches with empty and 1-byte members;
+    for decode, maximal streams (uniform random bytes at prob_bits 11),
+    ragged last steps, one-block members in a ragged batch, block streams
+    whose start word is odd, rows that are not 16-byte aligned, and in one
+    batch a lying size, a lying block count, a corrupted final state and a
+    corrupted stream or plane word, each in a member of its own."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_hist
+    from dietgpu_tpu_torch.floatcodec import codec
+
+    L = RAW_BYTES
+    for val in (0x00, 0xFF):
+        d32 = torch.full((L // 4,), -1 if val else 0, dtype=torch.int32, device=dev)
+        require_exact(f"hist {L} bytes of {val:#04x}",
+                      zip(one(cuda_hist.histogram_u8_batched_cuda(d32[None], [L], True)),
+                          cuda_hist.histogram_u8_plain(d32, L, True)))
+    del d32
+    Lm = 1 << 22
+    lengths = [0, 1, Lm, 0, 1, Lm - 7]
+    B = len(lengths)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fills = {
+        "random": torch.randint(-(1 << 31), 1 << 31, (B, Lm // 4), dtype=torch.int32,
+                                device=dev, generator=gen),
+        "0x00": torch.zeros((B, Lm // 4), dtype=torch.int32, device=dev),
+        "0xff": torch.full((B, Lm // 4), -1, dtype=torch.int32, device=dev),
+        "alternating": torch.full((B, Lm // 4), 0x01FE01FE, dtype=torch.int32, device=dev),
+    }
+    for name, data in fills.items():
+        require_exact(f"batched hist {name} lengths={lengths}",
+                      zip(cuda_hist.histogram_u8_batched_cuda(data, lengths, True),
+                          cuda_hist.histogram_u8_batched_plain(data, lengths, True)))
+    del fills, data
+    # more members than one round of the kernels' member scans (512 for
+    # hist, 128 for decode), most of them empty or short
+    rng = np.random.default_rng(9)
+    Lb = 3 * 4096
+    many = rng.integers(0, Lb + 1, 1100)
+    many[rng.random(1100) < 0.3] = 0
+    many = many.tolist()
+    db = torch.from_numpy(np.minimum(rng.exponential(20, (1100, Lb)), 255).astype(np.uint8))
+    db = db.to(dev)
+    require_exact(f"batched hist, {len(many)} members",
+                  zip(cuda_hist.histogram_u8_batched_cuda(db.view(torch.int32), many, True),
+                      cuda_hist.histogram_u8_batched_plain(db.view(torch.int32), many, True)))
+    arcs, _ = port.ans_encode_batched(db[:300], many[:300], None, 10, True)
+    require_exact("batched decode_raw, 300 members",
+                  zip(cuda_decode.decode_raw_batched_cuda(arcs, 10, Lb, None, True),
+                      cuda_decode.decode_raw_batched_plain(arcs, 10, Lb, None, True)))
+    wb = torch.randint(-(1 << 15), 1 << 15, (300, 2 * Lb), dtype=torch.int16, device=dev,
+                       generator=gen)
+    for ft, w in ((C.FLOAT_TYPE_BFLOAT16, wb), (C.FLOAT_TYPE_FLOAT32, wb.view(torch.int32))):
+        Lw = w.shape[1]  # words a member
+        arcs, _ = codec.float_compress_batched(w, many[:300], ft, 10, True)
+        require_exact(f"batched decode ft={ft}, 300 members",
+                      zip(cuda_decode.decode_float_batched_cuda(arcs, ft, Lw, 10, None, True),
+                          cuda_decode.decode_float_batched_plain(arcs, ft, Lw, 10, None, True)))
+    del db, wb, arcs
+
+    def set_odd_starts(arcs, m, base):
+        nb = int(arcs[m, base + 1])
+        bw = base + 136 + 32 * nb
+        arcs[m, bw + 1 : bw + 2 * nb : 2] |= 1
+
+    def misaligned(arcs):
+        """The same archives at a stride of one more u32: rows at 4 bytes
+        past a 16-byte boundary, every other one."""
+        wide = torch.zeros((arcs.shape[0], arcs.shape[1] + 1), dtype=arcs.dtype, device=dev)
+        wide[:, :-1] = arcs
+        return wide
+
+    # raw archives
+    Lr = 1 << 18
+    lens = [Lr, 1, Lr - 3 * 4096 - 17, 4096, 33, Lr - 5]
+    rng = np.random.default_rng(8)
+    d = np.minimum(rng.exponential(30, (len(lens), Lr)), 255).astype(np.uint8)
+    d[0] = rng.integers(0, 256, Lr, dtype=np.uint8)  # maximal streams
+    for m, n in enumerate(lens):
+        d[m, n:] = 0
+    d = torch.from_numpy(d).to(dev)
+    for pb in C.SUPPORTED_PROB_BITS:
+        arcs, _ = port.ans_encode_batched(d, lens, None, pb, True)
+        odd = arcs.clone()
+        set_odd_starts(odd, 0, 0)
+        set_odd_starts(odd, 2, 0)
+        bad = arcs.clone()
+        bad[1, 2] = Lr + 1  # a size past the capacity
+        bad[3, 1] = 0xFFFF  # a block count past the row
+        bad[4, 136 + 5] ^= 0x10  # a lane's final state
+        nb0 = int(bad[2, 1])
+        bad[2, 136 + 32 * nb0 + 2 * (nb0 + (nb0 & 1)) + 40] ^= 0x00010000  # a stream word
+        cases = {"as written": arcs, "odd stream starts": odd, "faults": bad,
+                 "rows not 16-byte aligned": misaligned(bad)}
+        for what, a in cases.items():
+            require_exact(f"decode_raw pb={pb} lengths={lens}: {what}",
+                          zip(cuda_decode.decode_raw_batched_cuda(a, pb, Lr, None, True),
+                              cuda_decode.decode_raw_batched_plain(a, pb, Lr, None, True)))
+        r = port.ans_decode_batched(odd, pb, Lr)
+        require(bool(r["success"].all()) and torch.equal(r["out"], d),
+                f"raw archives with odd stream starts decode to their bytes, pb={pb}")
+    log("  decode_raw: the same bytes and status as the plain version on every fault")
+
+    # float containers
+    Lw = 1 << 16
+    fl = [Lw, 1, Lw - 777, 4096, 0]
+    x = torch.randn((len(fl), Lw), generator=gen, device=dev)
+    x[0] = torch.rand(Lw, generator=gen, device=dev) * 2 - 1
+    as_words = {C.FLOAT_TYPE_FLOAT16: x.half().view(torch.int16),
+                C.FLOAT_TYPE_BFLOAT16: (x.view(torch.int32) >> 16).to(torch.int16),
+                C.FLOAT_TYPE_FLOAT32: x.view(torch.int32)}
+    for ft, w in as_words.items():
+        f32 = ft == C.FLOAT_TYPE_FLOAT32
+        for pb in C.SUPPORTED_PROB_BITS:
+            arcs, _ = codec.float_compress_batched(w, fl, ft, pb, True)
+
+            def ans_base(n):
+                b = 4 + C.round_up(n, 16) // 4
+                return b + C.round_up(n, 8) // 2 if f32 else b
+
+            odd = arcs.clone()
+            set_odd_starts(odd, 0, ans_base(fl[0]))
+            set_odd_starts(odd, 2, ans_base(fl[2]))
+            bad = arcs.clone()
+            bad[1, 1] += 4096  # a lying word count
+            bad[0, 4 + 100] ^= 0x01000000  # a plane byte
+            b3 = ans_base(fl[3])
+            bad[3, b3 + 136 + 5] ^= 0x10  # a lane's final state
+            bad[2, ans_base(fl[2]) + 1] = 0xFFFF  # a block count past the row
+            cases = {"as written": arcs, "odd stream starts": odd, "faults": bad,
+                     "rows not 16-byte aligned": misaligned(bad)}
+            for what, a in cases.items():
+                require_exact(
+                    f"decode ft={ft} pb={pb} lengths={fl}: {what}",
+                    zip(cuda_decode.decode_float_batched_cuda(a, ft, Lw, pb, None, True),
+                        cuda_decode.decode_float_batched_plain(a, ft, Lw, pb, None, True)))
+            r = codec.float_decompress_batched(odd, ft, Lw, pb, True)
+            valid = torch.arange(Lw, device=dev)[None, :] < torch.tensor(fl, device=dev)[:, None]
+            require(bool(r["success"].all()) and bool(r["checksum_ok"].all())
+                    and torch.equal(r["out32"].view(w.dtype), torch.where(valid, w, 0)),
+                    f"float containers with odd stream starts decode to their words, ft={ft}")
+    log("  decode (f16/bf16/f32): the same words and status as the plain version on every fault")
+
+
 def float_batch_path(port, name, ft, words, err):
     """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
     through float_compress_batched / float_decompress_batched. Fills err
@@ -801,6 +960,7 @@ def raw_batch_path(port, data, lengths, err):
     log("  checksummed call: roundtrip exact, checksum verified on decode")
     del a2, r2
     d32 = data.view(torch.int32)
+    lengths_t = torch.tensor(lengths, dtype=torch.int64, device=data.device)
     err["hist_batched"] = require_exact(
         "hist_batched ck=True, path F shape",
         zip(cuda_hist.histogram_u8_batched_cuda(d32, lengths, True),
@@ -815,7 +975,8 @@ def raw_batch_path(port, data, lengths, err):
     torch.cuda.empty_cache()
     return {
         "arcs": arcs, "sizes": sizes, "launches": launches, "single": [a for a, _ in single],
-        "hist": (lambda: cuda_hist.histogram_u8_batched_cuda(d32, lengths),
+        # as ans_encode_batched calls it: the lengths on the card, made once
+        "hist": (lambda: cuda_hist.histogram_u8_batched_cuda(d32, lengths, False, lengths_t),
                  lambda: cuda_hist.histogram_u8_batched_plain(d32, lengths)),
         "decode": (lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, L),
                    lambda: cuda_decode.decode_raw_batched_plain(arcs, 10, L)),
@@ -975,6 +1136,8 @@ def main():
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"# build: {time.perf_counter() - t0:.1f} s for {sorted(built) or 'cached'}")
+    for k in _build._RESOURCES:
+        log(f"# resources of {k}: {_build.kernel_resources(k)}")
 
     # ---- 2. each kernel against its plain version, small shapes ----
     log("# phase 2: kernels vs plain versions")
@@ -1041,6 +1204,7 @@ def main():
     phase2_new_kernels(port, dev)
     phase2_batched_kernels(port, dev)
     phase2_slice4(port, dev)
+    phase2_slice5(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 

@@ -50,7 +50,7 @@ _ENTRY = {
         "split_f32", "dtt_split_f32",
         (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
-    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _LL)),
+    "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _LL, _VP, _VP, _LL)),
     "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)),
     "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP)),
     "decode": (
@@ -66,6 +66,16 @@ _ENTRY = {
     "join_f32": ("join", "dtt_join_f32", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _LL, _LL)),
 }
 KERNELS = tuple(_ENTRY)
+# kernel -> (source, C entry point, configuration) of the entry that reports
+# its resources (cudaFuncGetAttributes and the occupancy at its launch shape)
+_RESOURCES = {
+    "hist": ("hist", "dtt_hist_resources", 0),
+    "decode": ("decode", "dtt_decode_resources", 0),
+    "decode_f32": ("decode", "dtt_decode_resources", 1),
+    "decode_raw": ("decode", "dtt_decode_resources", 2),
+}
+RESOURCE_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
+                   "ctas_per_sm")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _entries = {}
@@ -144,6 +154,23 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {rc}")
     _launches[name] += 1
+
+
+def kernel_resources(name: str) -> dict:
+    """What kernel `name` takes on the card: registers a thread, static and
+    dynamic shared bytes a CTA, local (spill) bytes a thread, threads a CTA
+    and CTAs per SM at its launch shape, {field: int}."""
+    source, sym, config = _RESOURCES[name]
+    with _lock:
+        build_all()
+        fn = getattr(ctypes.CDLL(str(_lib_path(source))), sym)
+    fn.argtypes = (_INT, ctypes.POINTER(_INT))
+    fn.restype = ctypes.c_int
+    out = (_INT * len(RESOURCE_FIELDS))()
+    rc = fn(config, out)
+    if rc != 0:
+        raise RuntimeError(f"resources of CUDA kernel '{name}': cudaError {rc}")
+    return dict(zip(RESOURCE_FIELDS, out))
 
 
 def kernel_launches() -> dict:

@@ -77,7 +77,7 @@ def histogram_u8_batched_cuda(data32, lengths, with_checksum=False, lengths_t=No
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
         "hist", data32.data_ptr(), B, data32.shape[1] // 4, n, layout.data_ptr(n_t),
-        hist.data_ptr(),
+        sum((x + 15) // 16 for x in lengths), hist.data_ptr(),
         cks.data_ptr() if with_checksum else None, data32.shape[1],
     )
     return hist, cks

@@ -11,50 +11,74 @@
 // (GpuANSDecode.cuh:305-403) with and without the fused JoinFloatWriter
 // (GpuFloatDecompress.cuh:391-521, GpuFloatUtils.cuh:111-203).
 //
-// Bound on the H100: operations, not bytes. The kernel reads the raw planes
-// (1 B per f16/bf16 word, 3 B per f32 word, none for raw bytes) and the
-// compressed exponents once and writes each output once, but each symbol is
-// a dependent chain (LUT lookup, multiply, compare, warp vote, stream read)
-// 128 steps deep per warp. The least time counted for it is its bytes over
-// 3.35 TB/s.
+// Bound on the H100: bytes. The kernel reads the compressed archive and
+// the raw planes (1 B per f16/bf16 word, 3 B per f32 word, none for raw
+// bytes) once and writes each output once; counted at 16 32-bit operations
+// a symbol over 67 T/s the work is a quarter of that time, so the least
+// time is the archive's size plus the output over 3.35 TB/s. What keeps
+// the kernel from it is latency: each 4 KiB block is a 128-step dependent
+// chain a warp (LUT load, multiply-add, vote, stream read), and the
+// block's stream and planes must come from device memory before it walks.
+// Enough chains must be in flight on an SM, and no warp may wait on a
+// device round trip more than once a block.
 //
-// Design: a persistent grid, one warp per 4 KiB block at a time, as in the
-// reference. Every CTA parses the headers itself -- for a float container
-// the float header, then the ANS header at the offset its word count gives
-// (4 + round_up(n, 16)/4 u32 for f16/bf16, 4 + round_up(n, 8)/2 +
-// round_up(n, 16)/4 for f32, whose high plane starts at 4 + round_up(n,
-// 8)/2); for a raw archive the ANS header at u32 0 -- and builds the
-// 2^prob_bits decode LUT, (sminus << 20) | (pdf << 8) | sym as in
-// decode.py:46-59, in shared memory from the archive's pdf, so the decode
-// needs no host round trip and no table pass in device memory. A warp first
-// copies its block's compressed stream (at most 2560 u16) to shared memory
-// with coalesced loads; the backward refill reads then cost a shared-memory
-// access instead of a dependent device-memory load each step. Lanes start
-// from the archived final states; steps run from s = 127 (or the ragged
-// last step) down to 0; a lane whose state falls below 2^15 refills from
-// stream[pos - rank], rank taken from a reversed __popc of the ballot.
-// Symbols collect in shared memory and then leave in groups of 4: as
-// finished, tail-masked f16/bf16 word pairs (8-byte stores), as finished,
-// tail-masked f32 words (16-byte stores), or as raw bytes (16-byte stores
-// of 16 symbols); outputs past a block's symbols are zero. The optional
-// XOR digest of the output is folded per warp and merged with atomicXor.
+// Design:
 //
-// Every read goes through a clamp to the buffer, so a lying header can only
-// fail `success` (status[0]) and never read or write out of bounds.
+// - One warp walks one block at a time, all 4096 outputs of it, with the
+//   join fused into the walk: at step k lane l decodes the symbol of output
+//   k * 32 + l, joins it with that output's plane bytes from shared memory
+//   and stores the finished word (a coalesced 32/64/128-byte store a warp
+//   a step). No symbol buffer and no second pass: a warp's shared memory is
+//   its block's stream window (5 KiB) and its planes (4 KiB for f16/bf16,
+//   12 KiB for f32). So 32 (raw), 22 (f16/bf16) or 12 (f32) warps fit on an
+//   SM, each with its own chain in flight.
+// - The stream window and the planes come in by cp.async, 16-byte copies
+//   all issued at once, then one wait: one round of device latency a block
+//   instead of one a u32, during which the SM's other warps walk. A block
+//   whose whole range lies in its member's row takes that path; one that
+//   does not (a lying header, the last bytes of a row that is not 16-byte
+//   aligned) copies word by word with the plain version's clamps. The range
+//   is checked once a block, not a word. The block table's words and the
+//   lanes' final states are loaded a block ahead, so the copy is the one
+//   wait a block. The copies are not double-buffered: shared memory bounds
+//   the chains in flight on an SM, a second slot a warp would halve them,
+//   and a single slot is idle only for one round trip of a block's walk.
+// - Reads of the ANS archive follow the plain version's clamps exactly
+//   (an index below 0 reads the archive's word 0, one past its end its last
+//   word when it has 137 or more, else 0; plane words past the row read 0),
+//   and the stream window is the plain version's: 2560 u16 from u32
+//   ds32 + (start >> 1). So a lying header or a corrupted payload decodes
+//   to the same bytes and status as the plain version, and never reads or
+//   writes outside its member's row or output.
+// - Work is divided by blocks, not by member. Every CTA parses the
+//   headers of all B members (128 a round) and takes its share of the live
+//   blocks (those with symbols) and, separately, of the dead blocks (past
+//   a member's block count: zeros, or the plane joined with symbol 0 below
+//   the word count), through prefixes of the members' counts. A ragged
+//   batch costs what its blocks cost; the longest member no longer sets the
+//   time. A CTA builds the 2^prob_bits decode LUT, (sminus << 20) |
+//   (pdf << 8) | sym as in decode.py:46-59, in shared memory for each
+//   member whose live blocks it takes.
+//
+// Float containers: the ANS archive sits at 4 + round_up(n, 16)/4 u32 for
+// f16/bf16, 4 + round_up(n, 8)/2 + round_up(n, 16)/4 for f32, whose high
+// plane starts at 4 + round_up(n, 8)/2; n is the container's word count.
+// Outputs past a block's symbols are the plane joined with symbol 0, words
+// past n are zero, raw bytes past a block's symbols zero. The optional XOR
+// digest of the output is folded per warp and merged with atomicXor.
 //
 // Batched (the per_row_tables=True configurations of the TPU kernel, via
-// ans_decode_batched_pallas and float_decompress_batched_pallas): the grid
-// gains a member dimension, (x, B), each CTA persistent over its member's
-// blocks. Member m's archive is row m of a buffer with a stride of `a32`
-// u32, which is also the clamp bound, so a lying header in member m fails
-// only member m's success and never reads member m + 1; its output is row
-// m of the output, its status is status[3m .. 3m + 3). Each CTA parses its
-// own member's headers and builds that member's LUT; a single archive is a
-// batch of one. `static_nb` >= 0 is the batched path's known block
-// count: the block geometry comes from it and success requires the
-// header's count to equal it, as with static_nb in the TPU path.
+// ans_decode_batched_pallas and float_decompress_batched_pallas): member
+// m's archive is row m of a buffer with a stride of `a32` u32, which is
+// also its read bound; its output is row m of the output, its status is
+// status[3m .. 3m + 3). A single archive is a batch of one. `static_nb`
+// >= 0 is the batched path's known block count: the block geometry comes
+// from it and success requires the header's count to equal it, as with
+// static_nb in the TPU path.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,250 +87,490 @@ constexpr int kHalf = 0;
 constexpr int kF32 = 1;
 constexpr int kRaw = 2;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kBlockBytes = 4096;
-constexpr int kMaxWords = 2560;
-constexpr int kStreamWords32 = kMaxWords / 2 + 1;
+constexpr int kMaxWords = 2560;     // u16 of a block's stream window
+constexpr int kStreamBuf = 5136;    // 1280 u32 and a skew of <= 12 B, whole chunks
+constexpr int kPlaneBuf = 4112;     // 1024 u32 and a skew
+constexpr int kLoBuf = 8208;        // 2048 u32 and a skew
+constexpr int kRound = 128;         // members parsed a round
+constexpr int kLutWords = 2048;     // 2^11, the largest prob_bits
 constexpr uint32_t kFloatMagic = 0xF00F0001u;
 constexpr uint32_t kAnsMagic = 0xD00D0001u;
 constexpr int kBf16 = 2;
+// shared bytes a CTA besides the warps' slots: the LUT and the pdf's
+// prefix, seven int arrays of a round's members, the scans' scratch
+constexpr int kOverhead = 4 * (kLutWords + 256) + kRound * 7 * 4 + 32 * 8;
 
-__device__ __forceinline__ uint32_t ld(const uint32_t* __restrict__ a,
-                                       long long a32, long long i) {
-  return (i >= 0 && i < a32) ? a[i] : 0u;
-}
+template <int kMode>
+struct Cfg {
+  static constexpr int kWarps = kMode == kRaw ? 8 : (kMode == kF32 ? 12 : 11);
+  static constexpr int kMinBlocks = kMode == kRaw ? 4 : (kMode == kF32 ? 1 : 2);  // a SM
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kSlot =
+      kStreamBuf + (kMode == kRaw ? 0 : (kMode == kHalf ? kPlaneBuf : kLoBuf + kPlaneBuf));
+  static constexpr int kSmem = kOverhead + kWarps * kSlot;
+};
+static_assert(kOverhead % 16 == 0 && kStreamBuf % 16 == 0 && kPlaneBuf % 16 == 0 &&
+              kLoBuf % 16 == 0, "slots must stay 16-byte aligned");
+static_assert(Cfg<kF32>::kSmem <= 232448, "more than a CTA may hold");
 
-__device__ __forceinline__ long long clampll(long long v, long long lo,
-                                             long long hi) {
+__device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Word `rel` of the ANS archive at u32 `base` of a row, as the plain
+// version reads it (decode.py: decode_rows.take): clamped to [0, lim - 1],
+// lim = max(rel_len, 137), and 0 at or past the archive's rel_len words.
+__device__ __forceinline__ uint32_t take(const uint32_t* __restrict__ arc,
+                                         long long base, long long rel_len,
+                                         long long rel) {
+  const long long lim = rel_len > 137 ? rel_len : 137;
+  const long long r = clampll(rel, 0, lim - 1);
+  return r < rel_len ? arc[base + r] : 0u;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy the n row words [w0, w0 + n) to shared `dst`, word i landing at
+// dst[skew + i], skew = the source's offset in its 16-byte chunk (returned).
+// When `direct` (every word lies in the row and reads as itself) and the
+// chunks covering the range lie in the row, by 16-byte cp.async; otherwise
+// word by word through `slow(i)`. The caller waits for the copies.
+template <class Slow>
+__device__ __forceinline__ int stage(uint32_t* dst, const uint32_t* arc, long long a32,
+                                     long long w0, int n, bool direct, Slow slow,
+                                     int lane) {
+  const uintptr_t src = reinterpret_cast<uintptr_t>(arc) + 4 * w0;
+  const int skew = (int)((src & 15u) >> 2);
+  if (direct) {
+    const uintptr_t c0 = src & ~uintptr_t(15);
+    const uintptr_t c1 = (src + 4 * (uintptr_t)n + 15) & ~uintptr_t(15);
+    const uintptr_t r0 = reinterpret_cast<uintptr_t>(arc);
+    const uintptr_t r1 = r0 + 4 * (uintptr_t)a32;
+    if (c0 >= r0 && c1 <= r1) {
+      const int chunks = (int)((c1 - c0) >> 4);
+      for (int i = lane; i < chunks; i += 32) {
+        cp_async16(dst + 4 * i, reinterpret_cast<const void*>(c0 + 16 * (uintptr_t)i));
+      }
+      return skew;
+    }
+  }
+  for (int i = lane; i < n; i += 32) dst[skew + i] = slow(i);
+  return skew;
+}
+
+// A member's headers, as the plain version parses them.
+struct Member {
+  long long base;      // u32 of the ANS archive in the row
+  long long hi_base;   // f32: u32 of the high plane
+  int n_eff;           // float: the word count, clamped to [0, Lw]
+  int nb_geo;          // blocks of the section geometry
+  int nb_live;         // blocks that decode
+  bool ok;
+  uint32_t n_word;     // the header's count (words, or raw bytes)
+};
+
 template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const uint32_t* __restrict__ arcs, long long a32,
+__device__ Member parse(const uint32_t* __restrict__ arc, long long a32, int nb_cap,
+                        int float_type, int prob_bits, long long static_length,
+                        long long static_nb) {
+  const long long Lw = (long long)nb_cap * kBlockBytes;
+  Member M;
+  M.base = 0;
+  M.hi_base = 0;
+  M.n_eff = 0;
+  if constexpr (kMode == kRaw) {
+    M.n_word = take(arc, 0, a32, 2);
+    M.ok = take(arc, 0, a32, 0) == kAnsMagic &&
+           (take(arc, 0, a32, 4) & 0xfu) == (uint32_t)prob_bits && (int)M.n_word <= Lw;
+  } else {
+    M.n_word = arc[1];
+    const int n = (int)M.n_word;
+    M.ok = arc[0] == kFloatMagic && (arc[2] & 0xfu) == (uint32_t)float_type && n <= Lw;
+    if (static_length >= 0) {
+      M.ok = M.ok && (long long)n == (static_length < Lw ? static_length : Lw);
+    }
+    M.n_eff = (int)clampll(n, 0, Lw);
+    if constexpr (kMode == kF32) {
+      M.hi_base = 4 + ((M.n_eff + 7LL) / 8) * 4;
+      M.base = M.hi_base + ((M.n_eff + 15LL) / 16) * 4;
+    } else {
+      M.base = 4 + ((M.n_eff + 15LL) / 16) * 4;
+    }
+    const long long rl = a32 - M.base;
+    const int an = (int)take(arc, M.base, rl, 2);
+    M.ok = M.ok && take(arc, M.base, rl, 0) == kAnsMagic &&
+           (take(arc, M.base, rl, 4) & 0xfu) == (uint32_t)prob_bits && an <= Lw &&
+           an == M.n_eff;
+  }
+  const int nb = (int)take(arc, M.base, a32 - M.base, 1);
+  const int nb_eff = (int)clampll(nb, 0, nb_cap);
+  M.nb_geo = nb_eff;
+  M.nb_live = nb_eff;
+  if (static_nb >= 0) {
+    M.nb_geo = (int)(static_nb < nb_cap ? static_nb : nb_cap);
+    M.ok = M.ok && nb == M.nb_geo;
+    M.nb_live = M.nb_geo < nb_eff ? M.nb_geo : nb_eff;
+  }
+  return M;
+}
+
+// Inclusive prefix over a warp.
+__device__ __forceinline__ long long warp_scan(long long v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += y;
+  }
+  return v;
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+__device__ __forceinline__ void flush_digest(uint32_t& digest, uint32_t* status,
+                                             int lane) {
+  for (int d = 16; d > 0; d >>= 1) digest ^= __shfl_xor_sync(0xffffffffu, digest, d);
+  digest ^= digest >> 16;
+  digest ^= digest >> 8;
+  digest &= 0xffu;
+  if (lane == 0 && digest) atomicXor(&status[2], digest);
+  digest = 0;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(Cfg<kMode>::kThreads, Cfg<kMode>::kMinBlocks)
+decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
               void* __restrict__ out_all, int nb_cap, int float_type,
               int prob_bits, long long static_length, long long static_nb,
               int with_digest, uint32_t* __restrict__ status_all) {
-  __shared__ uint32_t lut[2048];
-  __shared__ uint32_t incl[256];
-  __shared__ uint32_t pdfs[256];
-  __shared__ __align__(16) uint8_t syms[kWarps][kBlockBytes];
-  __shared__ uint32_t streams[kWarps][kStreamWords32];
+  constexpr int kWarps = Cfg<kMode>::kWarps;
+  constexpr int kThreads = Cfg<kMode>::kThreads;
+  constexpr int kOut = kMode == kRaw ? 1 : (kMode == kF32 ? 4 : 2);  // bytes a symbol
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* incl = lut + kLutWords;
+  long long* s_warp = reinterpret_cast<long long*>(incl + 256);  // 32 scan words
+  int* m_base = reinterpret_cast<int*>(s_warp + 32);  // a round's members: ANS base,
+  int* m_hib = m_base + kRound;                       // f32 high plane,
+  int* m_neff = m_hib + kRound;                       // word count,
+  int* m_geo = m_neff + kRound;                       // geometry's blocks,
+  int* m_live = m_geo + kRound;                       // blocks that decode,
+  int* m_l0 = m_live + kRound;  // first live block in the prefix of all members
+  int* m_d0 = m_l0 + kRound;    // first dead block in the prefix of all members
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // output capacity: words of a float container, bytes of a raw archive
-  const long long Lw = (long long)nb_cap * kBlockBytes;
-  constexpr int kOutBytesPerSymbol = kMode == kRaw ? 1 : (kMode == kF32 ? 4 : 2);
-  const long long m = blockIdx.y;
-  const uint32_t* __restrict__ arc = arcs + m * a32;
-  void* __restrict__ out_v =
-      static_cast<uint8_t*>(out_all) + m * Lw * kOutBytesPerSymbol;
-  uint32_t* __restrict__ status = status_all + 3 * m;
-
-  // ---- headers: success, the ANS archive's base, the planes' bases ----
-  long long base = 0;
-  long long hi_base = 0;
-  long long n_eff = 0;
-  bool ok;
-  uint32_t n_word;
-  if constexpr (kMode == kRaw) {
-    n_word = ld(arc, a32, 2);
-    ok = ld(arc, a32, 0) == kAnsMagic &&
-         (ld(arc, a32, 4) & 0xfu) == (uint32_t)prob_bits &&
-         (int)n_word <= Lw;
-  } else {
-    n_word = ld(arc, a32, 1);
-    const int n = (int)n_word;
-    const uint32_t fopt = ld(arc, a32, 2);
-    ok = ld(arc, a32, 0) == kFloatMagic &&
-         (fopt & 0xfu) == (uint32_t)float_type && n <= Lw;
-    if (static_length >= 0) {
-      ok = ok && (long long)n == (static_length < Lw ? static_length : Lw);
-    }
-    n_eff = clampll(n, 0, Lw);
-    if constexpr (kMode == kF32) {
-      hi_base = 4 + ((n_eff + 7) / 8) * 4;
-      base = hi_base + ((n_eff + 15) / 16) * 4;
-    } else {
-      base = 4 + ((n_eff + 15) / 16) * 4;
-    }
-    const int an = (int)ld(arc, a32, base + 2);
-    ok = ok && ld(arc, a32, base) == kAnsMagic &&
-         (ld(arc, a32, base + 4) & 0xfu) == (uint32_t)prob_bits && an <= Lw &&
-         (long long)an == n_eff;
-  }
-  const int nb = (int)ld(arc, a32, base + 1);
-  const long long nb_eff = clampll(nb, 0, nb_cap);
-  // blocks of the section geometry, and blocks that decode
-  long long nb_geo = nb_eff;
-  long long nb_live = nb_eff;
-  if (static_nb >= 0) {
-    nb_geo = static_nb < nb_cap ? static_nb : nb_cap;
-    ok = ok && (long long)nb == nb_geo;
-    nb_live = nb_geo < nb_eff ? nb_geo : nb_eff;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    status[0] = ok ? 1u : 0u;
-    status[1] = n_word;
-  }
-
-  // ---- decode LUT from the archive pdf: sym = #{incl <= slot} ----
-  for (int t = threadIdx.x; t < 256; t += kThreads) {
-    const uint32_t pw = ld(arc, a32, base + 8 + t / 2);
-    pdfs[t] = (t & 1) ? (pw >> 16) : (pw & 0xffffu);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t carry = 0;
-    for (int c = 0; c < 256; c += 32) {
-      uint32_t v = pdfs[c + lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xffffffffu, v, d);
-        if (lane >= d) v += y;
-      }
-      incl[c + lane] = v + carry;
-      carry += __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-  __syncthreads();
-  const int K = 1 << prob_bits;
-  for (int slot = threadIdx.x; slot < K; slot += kThreads) {
-    int lo = 0;
-    int hi = 256;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (incl[mid] <= (uint32_t)slot) lo = mid + 1; else hi = mid;
-    }
-    const uint32_t s = lo < 255 ? lo : 255;
-    const uint32_t pof = pdfs[s];
-    const uint32_t sminus = (uint32_t)slot - (incl[s] - pof);
-    lut[slot] = (sminus << 20) | (pof << 8) | s;
-  }
-  __syncthreads();
-
-  // ---- one warp per block ----
-  const long long bw_start = base + 136 + nb_geo * 32;
-  const long long ds32 = bw_start + 2 * (nb_geo + (nb_geo & 1));
-  const uint32_t smask = (uint32_t)K - 1u;
+  uint8_t* slot = smem + kOverhead + warp * Cfg<kMode>::kSlot;
+  uint32_t* sbuf = reinterpret_cast<uint32_t*>(slot);
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(slot + kStreamBuf);  // nonComp or high plane
+  uint32_t* lobuf = reinterpret_cast<uint32_t*>(slot + kStreamBuf + kPlaneBuf);
+  const uint32_t smask = (1u << prob_bits) - 1u;
   const bool bf16 = float_type == kBf16;
-  uint8_t* sy = syms[warp];
-  uint32_t* st32 = streams[warp];
-  const uint16_t* st16 = reinterpret_cast<const uint16_t*>(st32);
+  const bool cta0 = blockIdx.x == 0;
+
+  // ---- totals of live and dead blocks over the batch ----
+  long long l_tot = 0;
+  long long d_tot = 0;
+  if (batch > kRound) {  // more than one round: a pass of its own
+    long long l = 0;
+    long long d = 0;
+    for (long long m = threadIdx.x; m < batch; m += kThreads) {
+      const Member M = parse<kMode>(arcs + m * a32, a32, nb_cap, float_type, prob_bits,
+                                    static_length, static_nb);
+      l += M.nb_live;
+      d += nb_cap - M.nb_live;
+      if (cta0) {
+        status_all[3 * m] = M.ok ? 1u : 0u;
+        status_all[3 * m + 1] = M.n_word;
+      }
+    }
+    l = warp_sum(l);
+    d = warp_sum(d);
+    if (lane == 0) {
+      s_warp[warp] = l;
+      s_warp[16 + warp] = d;
+    }
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) {
+      l_tot += s_warp[w];
+      d_tot += s_warp[16 + w];
+    }
+    __syncthreads();
+  }
+
   uint32_t digest = 0;
-
-  for (long long b = (long long)blockIdx.x * kWarps + warp; b < nb_cap;
-       b += (long long)gridDim.x * kWarps) {
-    int kmax = 0;
-    if (b < nb_live) {
-      const uint32_t bx = ld(arc, a32, bw_start + 2 * b);
-      const int start = (int)ld(arc, a32, bw_start + 2 * b + 1);
-      const int uncomp = (int)(bx >> 16);
-      const int cw = (int)(bx & 0xffffu);
-      const int steps = (uncomp + 31) / 32;
-      const int rem = uncomp % 32;
-      kmax = steps < 128 ? steps : 128;
-
-      // the block's stream, u16 index sbase.. in the archive
-      const long long sbase = 2 * ds32 + start;
-      const int odd = (int)(sbase & 1);
-      const int cwc = cw < kMaxWords ? cw : kMaxWords;
-      const int nw = (odd + cwc + 1) >> 1;
-      for (int i = lane; i < nw; i += 32) {
-        st32[i] = ld(arc, a32, (sbase >> 1) + i);
-      }
-      __syncwarp();
-
-      uint32_t state = ld(arc, a32, base + 136 + b * 32 + lane);
-      int pos = cw;
-      for (int k = kmax - 1; k >= 0; --k) {
-        const bool act = !(k == steps - 1 && rem > 0) || lane < rem;
-        uint32_t sym = 0;
-        if (act) {
-          const uint32_t t = lut[state & smask];
-          sym = t & 0xffu;
-          state = ((t >> 8) & 0xfffu) * (state >> prob_bits) + (t >> 20);
-        }
-        const bool rd = act && state < (1u << 15);
-        const unsigned ballot = __ballot_sync(0xffffffffu, rd);
-        if (rd) {
-          int ridx = pos - __popc(ballot >> lane);
-          ridx = ridx < 0 ? 0 : (ridx > kMaxWords - 1 ? kMaxWords - 1 : ridx);
-          // ridx >= cwc only for a lying header: the slot then holds a
-          // stale word, never an out-of-bounds one
-          state = (state << 16) + st16[odd + ridx];
-        }
-        pos -= __popc(ballot);
-        sy[k * 32 + lane] = (uint8_t)sym;
+  long long cl = 0;  // live blocks of the members before this round
+  long long cd = 0;  // dead blocks of the members before this round
+  long long L0 = 0, L1 = 0, D0 = 0, D1 = 0;
+  for (long long r0 = 0; r0 < batch; r0 += kRound) {
+    long long live = 0;
+    long long dead = 0;
+    if (threadIdx.x < kRound && r0 + threadIdx.x < batch) {
+      const long long m = r0 + threadIdx.x;
+      const Member M = parse<kMode>(arcs + m * a32, a32, nb_cap, float_type, prob_bits,
+                                    static_length, static_nb);
+      m_base[threadIdx.x] = (int)M.base;
+      m_hib[threadIdx.x] = (int)M.hi_base;
+      m_neff[threadIdx.x] = M.n_eff;
+      m_geo[threadIdx.x] = M.nb_geo;
+      m_live[threadIdx.x] = M.nb_live;
+      live = M.nb_live;
+      dead = nb_cap - M.nb_live;
+      if (cta0 && batch <= kRound) {
+        status_all[3 * m] = M.ok ? 1u : 0u;
+        status_all[3 * m + 1] = M.n_word;
       }
     }
-    for (int i = kmax * 32 + lane; i < kBlockBytes; i += 32) sy[i] = 0;
-    __syncwarp();
-
-    const uint32_t* s4 = reinterpret_cast<const uint32_t*>(sy);
-    if constexpr (kMode == kRaw) {
-      // ---- raw bytes: 16 symbols per 16-byte store ----
-      uint4* out = static_cast<uint4*>(out_v);
-      const uint4* q4 = reinterpret_cast<const uint4*>(sy);
-      for (int j = lane; j < kBlockBytes / 16; j += 32) {
-        const uint4 o = q4[j];
-        out[b * (kBlockBytes / 16) + j] = o;
-        digest ^= o.x ^ o.y ^ o.z ^ o.w;
+    // prefix over the round's members (threads 0..127, four warps)
+    long long vl = warp_scan(live, lane);
+    long long vd = warp_scan(dead, lane);
+    if (lane == 31 && warp < kRound / 32) {
+      s_warp[warp] = vl;
+      s_warp[16 + warp] = vd;
+    }
+    __syncthreads();
+    long long tl = 0;
+    long long td = 0;
+    for (int w = 0; w < kRound / 32; ++w) {
+      if (w < warp) {
+        vl += s_warp[w];
+        vd += s_warp[16 + w];
       }
-    } else if constexpr (kMode == kF32) {
-      // ---- join 4 words at a time with the low plane at u32 4 + 2048 b
-      // and the high plane at u32 hi_base + 1024 b ----
-      uint4* out = static_cast<uint4*>(out_v);
-      for (int j = lane; j < kBlockBytes / 4; j += 32) {
-        const uint32_t sv = s4[j];
-        const uint32_t hv = ld(arc, a32, hi_base + b * (kBlockBytes / 4) + j);
-        const long long lo_i = 4 + b * (kBlockBytes / 2) + 2 * j;
-        const uint32_t lv[2] = {ld(arc, a32, lo_i), ld(arc, a32, lo_i + 1)};
-        const long long i0 = b * kBlockBytes + 4LL * j;
-        uint32_t w[4];
+      tl += s_warp[w];
+      td += s_warp[16 + w];
+    }
+    if (threadIdx.x < kRound) {
+      m_l0[threadIdx.x] = (int)(cl + vl - live);
+      m_d0[threadIdx.x] = (int)(cd + vd - dead);
+    }
+    if (batch <= kRound) {
+      l_tot = tl;
+      d_tot = td;
+    }
+    if (r0 == 0) {  // this CTA's shares of the live and the dead blocks
+      const long long lc = (l_tot + gridDim.x - 1) / gridDim.x;
+      const long long dc = (d_tot + gridDim.x - 1) / gridDim.x;
+      L0 = blockIdx.x * lc;
+      L1 = L0 + lc < l_tot ? L0 + lc : l_tot;
+      D0 = blockIdx.x * dc;
+      D1 = D0 + dc < d_tot ? D0 + dc : d_tot;
+    }
+    __syncthreads();
+
+    const int nm = batch - r0 < kRound ? (int)(batch - r0) : kRound;
+    for (int j = 0; j < nm; ++j) {
+      const long long m = r0 + j;
+      const uint32_t* __restrict__ arc = arcs + m * a32;
+      uint8_t* out_m = static_cast<uint8_t*>(out_all) +
+                       m * (long long)nb_cap * kBlockBytes * kOut;
+      uint32_t* status = status_all + 3 * m;
+      const long long base = m_base[j];
+      const long long rel_len = a32 - base;
+      const long long hi_base = m_hib[j];
+      const int n_eff = m_neff[j];
+      const int nb_geo = m_geo[j];
+      const int nb_live = m_live[j];
+      const long long lo_l = m_l0[j] > L0 ? m_l0[j] : L0;
+      const long long hi_l = m_l0[j] + nb_live < L1 ? m_l0[j] + nb_live : L1;
+      const long long lo_d = m_d0[j] > D0 ? m_d0[j] : D0;
+      const long long hi_d = m_d0[j] + (nb_cap - nb_live) < D1 ? m_d0[j] + (nb_cap - nb_live) : D1;
+      const bool any_live = lo_l < hi_l;
+      const bool any_dead = lo_d < hi_d;
+      if (!any_live && !any_dead) continue;
+
+      if (any_live) {
+        // ---- the member's decode LUT: sym = #{incl <= slot} ----
+        __syncthreads();  // the last member's blocks are done with the LUT
+        if (warp == 0) {  // the pdf's inclusive prefix
+          uint32_t pw[8];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint32_t v = (((sv >> (8 * q)) & 0xffu) << 24) |
-                             (((hv >> (8 * q)) & 0xffu) << 16) |
-                             ((lv[q >> 1] >> (16 * (q & 1))) & 0xffffu);
-          w[q] = i0 + q < n_eff ? ((v >> 1) | (v << 31)) : 0u;
-        }
-        const uint4 o = make_uint4(w[0], w[1], w[2], w[3]);
-        out[b * (kBlockBytes / 4) + j] = o;
-        digest ^= o.x ^ o.y ^ o.z ^ o.w;
-      }
-    } else {
-      // ---- join 4 words at a time with the nonComp plane at byte 16 ----
-      uint2* out = static_cast<uint2*>(out_v);
-      for (int j = lane; j < kBlockBytes / 4; j += 32) {
-        const uint32_t sv = s4[j];
-        const uint32_t nc = ld(arc, a32, 4 + b * (kBlockBytes / 4) + j);
-        const long long i0 = b * kBlockBytes + 4LL * j;
-        uint32_t w[4];
+          for (int c = 0; c < 8; ++c) pw[c] = take(arc, base, rel_len, 8 + 16 * c + lane / 2);
+          uint32_t carry = 0;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t v = (((sv >> (8 * q)) & 0xffu) << 8) | ((nc >> (8 * q)) & 0xffu);
-          if (bf16) v = ((v >> 1) | (v << 15)) & 0xffffu;
-          w[q] = i0 + q < n_eff ? v : 0u;
+          for (int c = 0; c < 8; ++c) {
+            uint32_t v = (lane & 1) ? (pw[c] >> 16) : (pw[c] & 0xffffu);
+            for (int d = 1; d < 32; d <<= 1) {
+              const uint32_t y = __shfl_up_sync(0xffffffffu, v, d);
+              if (lane >= d) v += y;
+            }
+            incl[32 * c + lane] = v + carry;
+            carry += __shfl_sync(0xffffffffu, v, 31);
+          }
         }
-        const uint2 o = make_uint2(w[0] | (w[1] << 16), w[2] | (w[3] << 16));
-        out[b * (kBlockBytes / 4) + j] = o;
-        digest ^= o.x ^ o.y;
+        __syncthreads();
+        for (int s = threadIdx.x; s <= (int)smask; s += kThreads) {
+          int lo = 0;
+          int hi = 256;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (incl[mid] <= (uint32_t)s) lo = mid + 1; else hi = mid;
+          }
+          const uint32_t sym = lo < 255 ? lo : 255;
+          const uint32_t pof = incl[sym] - (sym ? incl[sym - 1] : 0u);
+          const uint32_t sminus = (uint32_t)s - (incl[sym] - pof);
+          lut[s] = (sminus << 20) | (pof << 8) | sym;
+        }
+        __syncthreads();
       }
-    }
-    __syncwarp();
-  }
 
-  if (with_digest) {
-    for (int d = 16; d > 0; d >>= 1) {
-      digest ^= __shfl_xor_sync(0xffffffffu, digest, d);
+      const long long bw_rel = 136 + 32LL * nb_geo;
+      const long long ds_rel = bw_rel + 2LL * (nb_geo + (nb_geo & 1));
+      // live blocks [lo_l - l0, hi_l - l0), then dead ones from nb_live on
+      const long long n_l = any_live ? hi_l - lo_l : 0;
+      const long long n_d = any_dead ? hi_d - lo_d : 0;
+      const long long lb0 = lo_l - m_l0[j];                 // first live block
+      const long long db0 = nb_live + (lo_d - m_d0[j]) - n_l;  // + i: a dead block
+      // a live block's words in the block table and its lanes' final states,
+      // loaded a block ahead so that they arrive while the warp walks
+      uint32_t bx = 0;
+      int start = 0;
+      uint32_t state = 0;
+      auto head = [&](long long b) {
+        bx = take(arc, base, rel_len, bw_rel + 2 * b);
+        start = (int)take(arc, base, rel_len, bw_rel + 2 * b + 1);
+        state = take(arc, base, rel_len, 136 + 32 * b + lane);
+      };
+      if (warp < n_l) head(lb0 + warp);
+      for (long long i = warp; i < n_l + n_d; i += kWarps) {
+        const bool is_live = i < n_l;
+        const long long b = is_live ? lb0 + i : db0 + i;
+        uint8_t* outb = out_m + b * kBlockBytes * kOut;
+        // words of this block below the container's count
+        const int vlim = (int)clampll((long long)n_eff - b * kBlockBytes, 0, kBlockBytes);
+        if (!is_live && (kMode == kRaw || vlim == 0)) {
+          uint4* o = reinterpret_cast<uint4*>(outb);
+          for (int q = lane; q < kBlockBytes * kOut / 16; q += 32) o[q] = make_uint4(0, 0, 0, 0);
+          continue;
+        }
+
+        int kmax = 0;
+        int rem = 0;
+        int pos = 0;
+        uint32_t st = 0;
+        int sskew = 0;
+        if (is_live) {
+          const int uncomp = (int)(bx >> 16);
+          const int cw = (int)(bx & 0xffffu);
+          const int steps = (uncomp + 31) / 32;
+          kmax = steps < 128 ? steps : 128;
+          rem = steps <= 128 ? uncomp % 32 : 0;  // lanes of a ragged last step
+          pos = cw;
+          st = state;
+          // the stream window the refills can reach: u16 [0, n16)
+          const int n16 = cw < 1 ? 1 : (cw > kMaxWords ? kMaxWords : cw);
+          const int n32 = (n16 + 1) / 2;
+          const long long s_rel = ds_rel + (start >> 1);
+          sskew = stage(sbuf, arc, a32, base + s_rel, n32,
+                        s_rel >= 0 && s_rel + n32 <= rel_len,
+                        [&](int w) { return take(arc, base, rel_len, s_rel + w); }, lane);
+        }
+        int pskew = 0;
+        int loskew = 0;
+        if constexpr (kMode != kRaw) {
+          // plane words past the row read 0
+          auto plane = [&](uint32_t* buf, long long w0, int n) {
+            return stage(buf, arc, a32, w0, n, w0 + n <= a32,
+                         [&](int w) { return w0 + w < a32 ? arc[w0 + w] : 0u; }, lane);
+          };
+          if constexpr (kMode == kF32) {
+            loskew = plane(lobuf, 4 + b * (kBlockBytes / 2), kBlockBytes / 2);
+            pskew = plane(pbuf, hi_base + b * (kBlockBytes / 4), kBlockBytes / 4);
+          } else {
+            pskew = plane(pbuf, 4 + b * (kBlockBytes / 4), kBlockBytes / 4);
+          }
+        }
+        if (i + kWarps < n_l) head(lb0 + i + kWarps);
+        cp_async_wait_all();
+        __syncwarp();
+
+        const uint16_t* st16 = reinterpret_cast<const uint16_t*>(sbuf + sskew);
+        const uint8_t* pl8 = reinterpret_cast<const uint8_t*>(pbuf + pskew);
+        const uint16_t* lo16 = reinterpret_cast<const uint16_t*>(lobuf + loskew);
+        // output k * 32 + lane of the block for symbol `sym`; `masked` when
+        // the block holds the container's last word
+        auto emit = [&](int k, uint32_t sym, auto masked) {
+          const int p = k * 32 + lane;
+          if constexpr (kMode == kRaw) {
+            outb[p] = (uint8_t)sym;
+            digest ^= sym;
+          } else if constexpr (kMode == kF32) {
+            uint32_t w = (sym << 24) | ((uint32_t)pl8[p] << 16) | lo16[p];
+            w = (w >> 1) | (w << 31);
+            if (decltype(masked)::value && p >= vlim) w = 0;
+            reinterpret_cast<uint32_t*>(outb)[p] = w;
+            digest ^= w;
+          } else {
+            uint32_t w = (sym << 8) | pl8[p];
+            if (bf16) w = ((w >> 1) | (w << 15)) & 0xffffu;
+            if (decltype(masked)::value && p >= vlim) w = 0;
+            reinterpret_cast<uint16_t*>(outb)[p] = (uint16_t)w;
+            digest ^= w;
+          }
+        };
+        // one step of the walk for the lanes in `act`
+        const unsigned ge = 0xffffffffu << lane;  // lanes >= this one
+        auto step = [&](bool act) {
+          uint32_t sym = 0;
+          if (act) {
+            const uint32_t t = lut[st & smask];
+            sym = t & 0xffu;
+            st = ((t >> 8) & 0xfffu) * (st >> prob_bits) + (t >> 20);
+          }
+          const bool rd = act && st < (1u << 15);
+          const unsigned ballot = __ballot_sync(0xffffffffu, rd);
+          if (rd) {
+            int ridx = pos - __popc(ballot & ge);
+            ridx = ridx < 0 ? 0 : (ridx > kMaxWords - 1 ? kMaxWords - 1 : ridx);
+            st = (st << 16) + st16[ridx];
+          }
+          pos -= __popc(ballot);
+          return sym;
+        };
+        auto walk = [&](auto masked) {
+          for (int k = 127; k >= kmax; --k) emit(k, 0, masked);
+          int k = kmax - 1;
+          if (rem > 0) {  // the ragged last step
+            emit(k, step(lane < rem), masked);
+            --k;
+          }
+#pragma unroll 4
+          for (; k >= 0; --k) emit(k, step(true), masked);
+        };
+        if (kMode != kRaw && vlim < kBlockBytes) {
+          walk(std::true_type{});
+        } else {
+          walk(std::false_type{});
+        }
+        __syncwarp();  // the slot is free for the warp's next block
+      }
+      if (with_digest) flush_digest(digest, status, lane);
     }
-    digest ^= digest >> 16;
-    digest ^= digest >> 8;
-    digest &= 0xffu;
-    if (lane == 0 && digest) atomicXor(&status[2], digest);
+    cl += tl;
+    cd += td;
+    __syncthreads();  // the round's arrays are rewritten next round
+    if (cl >= L1 && cd >= D1) break;  // statuses: pass 1, or the one round
   }
+}
+
+// Shared memory before L1, so that the CTAs the slots allow fit on an SM.
+template <int kMode>
+cudaError_t set_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(decode_kernel<kMode>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Cfg<kMode>::kSmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(decode_kernel<kMode>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <int kMode>
@@ -315,26 +579,48 @@ int launch_decode(const void* arcs, long long batch, long long a32, void* out,
                   long long static_length, long long static_nb,
                   int with_digest, void* status, void* stream) {
   if (batch <= 0) return (int)cudaGetLastError();
+  constexpr int kSmem = Cfg<kMode>::kSmem;
+  cudaError_t e = set_attributes<kMode>();
+  if (e != cudaSuccess) return (int)e;
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
-                                                kThreads, 0);
-  // one wave of CTAs over the whole batch (so the share rounds down), each
-  // member's share persistent over its blocks
-  long long grid = (nb_cap + kWarps - 1) / kWarps;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
+                                                    Cfg<kMode>::kThreads, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  // one wave, a block a warp at the least
+  long long grid = (batch * nb_cap + Cfg<kMode>::kWarps - 1) / Cfg<kMode>::kWarps;
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long share = cap / batch;
-  if (grid > share) grid = share;
+  if (grid > cap) grid = cap;
   if (grid < 1) grid = 1;
-  decode_kernel<kMode><<<dim3((unsigned)grid, (unsigned)batch), kThreads, 0,
+  decode_kernel<kMode><<<(unsigned)grid, Cfg<kMode>::kThreads, kSmem,
                          (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(arcs), a32, out, nb_cap, float_type,
+      static_cast<const uint32_t*>(arcs), batch, a32, out, nb_cap, float_type,
       prob_bits, static_length, static_nb, with_digest,
       static_cast<uint32_t*>(status));
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int resources(int* out) {
+  constexpr int kSmem = Cfg<kMode>::kSmem;
+  cudaError_t e = set_attributes<kMode>();
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, decode_kernel<kMode>);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
+                                                    Cfg<kMode>::kThreads, kSmem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = kSmem;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = Cfg<kMode>::kThreads;
+  out[5] = per_sm;
+  return (int)e;
 }
 
 }  // namespace
@@ -374,4 +660,13 @@ extern "C" int dtt_decode_raw(const void* arcs, long long batch, long long a32,
                               void* status, void* stream) {
   return launch_decode<kRaw>(arcs, batch, a32, out, nb_cap, 0, prob_bits, -1,
                              static_nb, with_digest, status, stream);
+}
+
+// The resources of configuration `config` (0 f16/bf16, 1 f32, 2 raw):
+// registers a thread, static and dynamic shared bytes a CTA, local
+// (spilled) bytes a thread, threads a CTA and CTAs per SM, into out[0..5].
+extern "C" int dtt_decode_resources(int config, int* out) {
+  if (config == kF32) return resources<kF32>(out);
+  if (config == kRaw) return resources<kRaw>(out);
+  return resources<kHalf>(out);
 }

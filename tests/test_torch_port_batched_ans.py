@@ -99,6 +99,47 @@ def test_histogram_batched_matches_jax(lengths):
         cuda_hist.histogram_u8_batched_plain(torch.from_numpy(d).view(torch.int32), [1, 2, L + 1])
 
 
+@pytest.mark.parametrize("fill", ["random", "all_00", "all_ff", "alternating"])
+def test_histogram_batched_empty_and_one_byte_members(fill):
+    """Ragged batches with empty and 1-byte members beside a long one, each
+    row against JAX, with the same bytes in every row (one bin holds most of
+    the long member's counts)."""
+    lengths = [0, 1, L, 0, 1, L - 7]
+    B = len(lengths)
+    rng = np.random.default_rng(21)
+    if fill == "random":
+        d = rng.integers(0, 256, (B, L), dtype=np.uint8)
+    elif fill == "alternating":
+        d = np.tile(np.array([0x01, 0xFE], np.uint8), (B, L // 2))
+    else:
+        d = np.full((B, L), 0 if fill == "all_00" else 0xFF, np.uint8)
+    hist, cks = cuda_hist.histogram_u8_batched_plain(
+        torch.from_numpy(d).view(torch.int32), lengths, True)
+    for m, n in enumerate(lengths):
+        np.testing.assert_array_equal(hist[m].numpy(), np.asarray(_hist_jit(jnp.asarray(d[m]), n)))
+        assert int(cks[m]) == int(_cks_jit(jnp.asarray(d[m]), n))
+    assert hist[[0, 3]].sum() == 0 and hist[[1, 4]].sum(1).tolist() == [1, 1]
+
+
+def test_decode_odd_stream_starts_match_jax():
+    """Block streams whose start word is odd: the format reads a block's
+    stream from u32 ds32 + (start >> 1), so the JAX decoder and the port
+    give the member's bytes; a second member of the batch is untouched."""
+    lengths = [L, 9000]
+    d = _batch(31, lengths)
+    arcs, _ = port.ans_encode_batched(torch.from_numpy(d), lengths, None, 10, False)
+    bad = arcs.clone()
+    nb = int(bad[0, 1])
+    bw = 136 + 32 * nb
+    bad[0, bw + 1 : bw + 2 * nb : 2] |= 1
+    assert (bad[0, bw + 1 : bw + 2 * nb : 2] & 1).all() and nb == 3
+    res = port.ans_decode_batched(bad, 10, L)
+    jres = _dec_jit(jnp.asarray(interop.archive_to_numpy(bad[0])), 10, L, False)
+    assert res["success"].all() and bool(jres["success"])
+    np.testing.assert_array_equal(np.asarray(jres["out"]), d[0])
+    np.testing.assert_array_equal(res["out"].numpy(), d)
+
+
 @pytest.mark.parametrize("lengths", [RAGGED, EQUAL], ids=["ragged", "equal"])
 @pytest.mark.parametrize("pb", C.SUPPORTED_PROB_BITS)
 def test_encode_batched_matches_jax_per_member(pb, lengths):
@@ -312,3 +353,19 @@ def test_entry_argument_types_match_the_c_signatures():
     # every source is built, and the new and changed entry points are bound
     assert {source for source, _, _ in _build._ENTRY.values()} == set(_build.SOURCES)
     assert {"join", "join_f32", "split", "split_f32"} <= set(_build._ENTRY)
+
+
+def test_resource_entries_match_the_c_signatures():
+    """Each kernel whose resources are reported has a C entry `(int config,
+    int* out)` in its source, and the report names as many fields as the
+    entry writes."""
+    import re
+
+    assert set(_build._RESOURCES) == {"hist", "decode", "decode_f32", "decode_raw"}
+    for name, (source, sym, config) in _build._RESOURCES.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        params = re.search(rf'extern "C" int {sym}\(([^)]*)\)', text).group(1)
+        assert [p.strip().rsplit(" ", 1)[0] for p in params.split(",")] == ["int", "int*"], name
+        assert max(int(i) for i in re.findall(r"out\[(\d)\]", text)) + 1 == len(
+            _build.RESOURCE_FIELDS), name
+        assert 0 <= config <= 2

@@ -67,6 +67,34 @@ def test_histogram_matches_jax(n):
     np.testing.assert_array_equal(hist.numpy(), np.bincount(d[: min(n, L - 3)], minlength=256))
 
 
+def _adversarial_bytes(name):
+    """Inputs a per-thread 8-bit counter or a replicated histogram gets
+    wrong: one value in every byte (a bin past 2^16 counts), two values
+    alternating, and every byte value exactly once."""
+    if name == "all_00":
+        return np.zeros(70001, np.uint8)
+    if name == "all_ff":
+        return np.full(70001, 0xFF, np.uint8)
+    if name == "alternating":
+        return np.tile(np.array([0x3C, 0xC3], np.uint8), 40000)
+    return np.random.default_rng(55).permutation(256).astype(np.uint8)
+
+
+@pytest.mark.parametrize("name", ["all_00", "all_ff", "alternating", "each_once"])
+def test_histogram_adversarial_matches_jax(name):
+    d = _adversarial_bytes(name)
+    for n in (d.size, d.size - 5):
+        want_h = np.asarray(_hist_jit(jnp.asarray(d), n))
+        want_c = int(_cks_jit(jnp.asarray(d), n))
+        hist, cks = port.histogram_u8(torch.from_numpy(d), n, with_checksum=True)
+        np.testing.assert_array_equal(hist.numpy(), want_h)
+        assert int(cks) == want_c
+    if name.startswith("all_"):
+        assert want_h.max() > 1 << 16
+    if name == "each_once":
+        assert (np.asarray(_hist_jit(jnp.asarray(d), d.size)) == 1).all()
+
+
 def test_histogram_rejects_bad_input():
     d = torch.zeros(64, dtype=torch.uint8)
     with pytest.raises(ValueError):
@@ -232,6 +260,24 @@ def test_hist_kernel_matches_plain(cuda_device):
             want = cuda_hist.histogram_u8_plain(data32, n, ck)
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_hist_kernel_adversarial_on_card(cuda_device):
+    """The inputs of test_histogram_adversarial_matches_jax, at 2^24 bytes
+    for the constant ones, kernel against plain version, tolerance 0."""
+    n = 1 << 24
+    inputs = [torch.zeros(n, dtype=torch.uint8), torch.full((n,), 0xFF, dtype=torch.uint8)]
+    inputs += [torch.from_numpy(_adversarial_bytes(k)) for k in ("alternating", "each_once")]
+    for d in inputs:
+        pad = (-d.numel()) % 16
+        d32 = layout.u8_to_u32le(torch.cat([d, d.new_zeros(pad)]))
+        for length in (d.numel(), d.numel() - 5):
+            want = cuda_hist.histogram_u8_plain(d32, length, True)
+            got = [x[0] for x in cuda_hist.histogram_u8_batched_cuda(
+                d32.to(cuda_device)[None], [length], True)]
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.gpu

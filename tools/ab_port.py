@@ -11,8 +11,10 @@ words), B (128Mi f32 words) and C (2^28 raw bytes) of chip_smoke.py, with
 inputs made as chip_smoke.py makes them, prob_bits 10, no checksum, 20
 calls each: the CUDA-event ms per call, and the host's enqueue ms per call
 (until the call returns, before synchronising), where the glue between the
-kernels shows. Two versions are compared only within one such run. Each
-child also counts, with torch.profiler over 10 compress calls, the CUDA
+kernels shows; and the hist and decode kernels alone at chip_smoke.py's
+rows of paths A-F, called as the main paths call them. Two versions are
+compared only within one such run. Each child also counts, with
+torch.profiler over 10 compress calls, the CUDA
 runtime calls a compress makes (kernel launches, copies, stream
 synchronisations) and the host ms spent in them: a count that does not
 vary from run to run.
@@ -29,6 +31,53 @@ import time
 from pathlib import Path
 
 ITERS = 20
+
+
+def kernel_rows(port, timed, bf16, f32, raw, arc_c):
+    """The hist and decode kernels alone at chip_smoke.py's rows: A, B, C
+    (the inputs above) and the batches D, E, F made as chip_smoke.py makes
+    them, called as the main paths call them."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch.ans import cuda_decode, cuda_hist
+
+    n, L = 128 << 20, 1 << 28
+    out = {}
+    raw32 = raw.view(torch.int32)
+    out["kernel hist (C)"] = timed(lambda: cuda_hist.histogram_u8_batched_cuda(raw32[None], [L]))
+    out["kernel decode_raw (C)"] = timed(
+        lambda: cuda_decode.decode_raw_batched_cuda(arc_c[None], 10, L))
+    for row, ft, w in (("decode (A)", 2, bf16), ("decode_f32 (B)", 3, f32)):
+        a, _ = port.float_compress_padded(w, n, ft, 10, False)
+        out[f"kernel {row}"] = timed(lambda: cuda_decode.decode_float(a, ft, n, 10, n))
+    del a
+    B, Lm = 128, 1 << 19  # paths D and E
+    x = np.random.default_rng(0).standard_normal((B, Lm)).astype(np.float32)
+    words_e = torch.from_numpy(x.view(np.int32)).cuda()
+    words_d = (words_e >> 16).to(torch.int16).view(torch.int32)
+    del x
+    for row, ft, w in (("decode_batched (D)", 2, words_d), ("decode_f32_batched (E)", 3, words_e)):
+        a, _ = port.float_compress_batched(w, Lm, ft, 10, False)
+        out[f"kernel {row}"] = timed(
+            lambda: cuda_decode.decode_float_batched_cuda(a, ft, Lm, 10, Lm, False, Lm // 4096))
+    del a, words_d, words_e
+    rng = np.random.default_rng(0)  # path F
+    cap = 1 << 22
+    lengths = rng.integers(cap // 4, cap + 1, 64).tolist()
+    data = torch.empty((64, cap), dtype=torch.uint8, device="cuda")
+    for m, k in enumerate(lengths):
+        row = np.minimum(rng.exponential(30, cap), 255).astype(np.uint8)
+        row[k:] = 0
+        data[m] = torch.from_numpy(row)
+    lengths_t = torch.tensor(lengths, dtype=torch.int64, device="cuda")
+    d32 = data.view(torch.int32)
+    out["kernel hist_batched (F)"] = timed(
+        lambda: cuda_hist.histogram_u8_batched_cuda(d32, lengths, False, lengths_t))
+    arcs, _ = port.ans_encode_batched(data, lengths, None, 10, False)
+    out["kernel decode_raw_batched (F)"] = timed(
+        lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, cap))
+    return out
 
 
 def child(root):
@@ -73,6 +122,7 @@ def child(root):
     arc, _ = port.ans_encode_padded(raw, 1 << 28, 10, False)
     out["C compress"] = timed(lambda: port.ans_encode_padded(raw, 1 << 28, 10, False))
     out["C decompress"] = timed(lambda: port.ans_decode_padded(arc, 10, 1 << 28, False))
+    out.update(kernel_rows(port, timed, bf16, f32, raw, arc))
     compress_calls = {
         "A": lambda: port.float_compress_padded(bf16, n, 2, 10, False),
         "B": lambda: port.float_compress_padded(f32, n, 3, 10, False),
