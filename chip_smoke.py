@@ -10,9 +10,9 @@ result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
                nvcc for sm_90a, all in parallel, into ``build/``, and
-               prints the resources of the hist and decode kernels
-               (registers, static and dynamic shared bytes, spill bytes,
-               threads and CTAs per SM) on progress lines;
+               prints the resources of the hist, encode, decode and join
+               kernels (registers, static and dynamic shared bytes, spill
+               bytes, threads and CTAs per SM) on progress lines;
 2. kernels  -- each of the ten kernels (split, split_f32, hist, encode,
                assembly, decode in three configurations, join in two;
                every one takes a batch, a single tensor being a batch of
@@ -29,7 +29,13 @@ result line:
                streams, ragged last steps, one-block members, odd stream
                starts, rows that are not 16-byte aligned, and lying and
                corrupted members, outputs and status equal to the plain
-               version's;
+               version's; and encode and the f32 join on theirs: constant,
+               alternating and uniform random bytes at prob_bits 9-11, an
+               overflowing block, lengths at every edge of a block,
+               one-block members, ragged batches that cross the
+               persistent CTAs' shares, B = 1 and B = 513, path C's 2^28
+               bytes; low-plane rows that are not 8-byte aligned, an n4
+               that is not a multiple of 4, a batch;
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -817,6 +823,120 @@ def phase2_slice5(port, dev):
     log("  decode (f16/bf16/f32): the same words and status as the plain version on every fault")
 
 
+def encode_case(what, data, lengths, pb):
+    """The encode kernel against its plain version on a (B, L) uint8 batch
+    on the card, each member with the table of its own first lengths[m]
+    bytes (`lengths` an int for every member, passed as one scalar, or B
+    ints, passed on the card): staged words up to each block's count, the
+    counts and the states, bit for bit. Returns the kernel's counts."""
+    import torch
+
+    from dietgpu_tpu_torch.ans import cuda_encode, cuda_hist, stats
+    from dietgpu_tpu_torch.ans import encode as plain_encode
+
+    B = data.shape[0]
+    d32 = data.view(torch.int32)
+    lens = [lengths] * B if isinstance(lengths, int) else list(lengths)
+    hist, _ = cuda_hist.histogram_u8_batched_plain(d32, lens)
+    totals = torch.tensor(lens, dtype=torch.int64, device=data.device)
+    tables = plain_encode.encode_table(stats.normalize_probs(hist, totals, pb))
+    n = lengths if isinstance(lengths, int) else totals
+    ke = cuda_encode.encode_blocks_batched_cuda(d32, n, pb, tables)
+    pe = plain_encode.encode_blocks_batched(d32, n, pb, tables)
+    require_exact(f"encode {what} pb={pb}",
+                  [(ke[1], pe[1]), (ke[2], pe[2])] + staged_pairs(ke[0], pe[0], ke[1]))
+    return ke[1]
+
+
+def phase2_slice6(port, dev):
+    """The redesigned encode and f32 join kernels against their plain
+    versions on the inputs their designs are at risk on, bit for bit. For
+    encode: constant bytes (a symbol of probability 1, which emits
+    nothing), two alternating values and uniform random bytes (the most
+    emission) at prob_bits 9-11, a block that overflows 2560 words at
+    prob_bits 11, lengths 1, 31, 33, 4095, 4096 and 4097 (alone and as one
+    ragged batch), one-block members, a ragged batch whose members cross
+    the persistent CTAs' shares, B = 1 and B = 513 (more members than one
+    round of the kernel's member scan), and path C's 2^28 bytes. For the f32
+    join: low-plane rows that are not 8-byte aligned, exponent and high
+    rows that are not 16-byte aligned, an n4 that is not a multiple of 4,
+    and a batch."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    Lb = 1 << 20
+    fills = {
+        "constant": torch.zeros((1, Lb), dtype=torch.uint8, device=dev),
+        "alternating": torch.tensor([0x01, 0xFE], dtype=torch.uint8,
+                                    device=dev).repeat(Lb // 2)[None],
+        "uniform": torch.randint(0, 256, (1, Lb), dtype=torch.uint8, device=dev, generator=gen),
+    }
+    for name, d in fills.items():
+        for pb in (9, 10, 11):
+            counts = encode_case(f"{name} bytes, {Lb} bytes", d, Lb, pb)
+            if name == "constant":
+                require(int(counts.max()) == 0, "constant bytes emitted words")
+    rare = torch.arange(1, 256, dtype=torch.uint8, device=dev).repeat(17)[:4096]
+    ovf = torch.cat([torch.zeros(16 * 4096, dtype=torch.uint8, device=dev), rare])[None]
+    counts = encode_case("overflow block", ovf, ovf.shape[1], 11)
+    require(int(counts.max()) > 2560, "the overflow input did not overflow")
+
+    short = [1, 31, 33, 4095, 4096, 4097]
+    d = torch.randint(0, 256, (len(short), 2 * 4096), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    for n in short:
+        encode_case(f"length {n}", d[:1], n, 10)
+    encode_case(f"lengths {short}", d, short, 10)
+
+    rng = np.random.default_rng(6)
+
+    def ragged(B, nb, empty):
+        lens = rng.integers(1, nb * 4096 + 1, B)
+        lens[rng.random(B) < empty] = 0
+        data = np.minimum(rng.exponential(20, (B, nb * 4096)), 255).astype(np.uint8)
+        return torch.from_numpy(data).to(dev), lens.tolist()
+
+    data, lens = ragged(64, 1, 0.0)
+    encode_case("64 one-block members", data, lens, 10)
+    data, lens = ragged(37, 64, 0.2)  # ~1200 live blocks: shares of a few blocks a CTA
+    for pb in (9, 10, 11):
+        encode_case(f"{len(lens)} ragged members of up to 64 blocks", data, lens, pb)
+    data, lens = ragged(513, 2, 0.3)
+    encode_case("513 members", data, lens, 10)
+    encode_case("513 members of one length", data, 5000, 10)
+    data, lens = ragged(1, 3, 0.0)
+    encode_case("B = 1, a ragged length", data, lens, 10)
+    del data, d, fills, ovf
+
+    L = RAW_BYTES
+    dc = torch.empty(L, device=dev).exponential_(1 / 30, generator=gen).clamp_(max=255)
+    encode_case(f"{L} exponential bytes (path C's size)", dc.to(torch.uint8)[None], L, 10)
+    del dc
+    torch.cuda.empty_cache()
+
+    def rand(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    for B, n4 in ((1, 12345), (5, 12345), (3, 1 << 16)):
+        e, lo, h = rand(B, n4 + 3), rand(B, 2 * n4 + 3), rand(B, n4 + 3)
+        # (exponent and high offset, low offset, low stride), in u32: the
+        # rows as allocated, a low plane 4 bytes past an 8-byte boundary, an
+        # odd low stride, and every plane off its alignment
+        for eo, lo_off, lo_stride in ((0, 0, 2 * n4), (0, 1, 2 * n4), (0, 0, 2 * n4 + 1),
+                                      (1, 1, 2 * n4 + 1), (3, 2, 2 * n4)):
+            lv = lo.view(-1)[lo_off : lo_off + B * lo_stride].view(B, lo_stride)[:, : 2 * n4]
+            ev, hv = e[:, eo : eo + n4], h[:, eo : eo + n4]
+            require_exact(f"join_f32 B={B} n4={n4} exp/high offset {eo}, low offset "
+                          f"{lo_off} stride {lo_stride}",
+                          [(cuda_float.join_words_f32_cuda(ev, lv, hv),
+                            cuda_float.join_words_f32_plain(ev, lv, hv))])
+    log("  encode and join_f32: the same outputs as the plain versions on every input")
+
+
 def float_batch_path(port, name, ft, words, err):
     """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
     through float_compress_batched / float_decompress_batched. Fills err
@@ -1205,6 +1325,7 @@ def main():
     phase2_batched_kernels(port, dev)
     phase2_slice4(port, dev)
     phase2_slice5(port, dev)
+    phase2_slice6(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 

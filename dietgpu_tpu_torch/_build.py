@@ -70,9 +70,12 @@ KERNELS = tuple(_ENTRY)
 # its resources (cudaFuncGetAttributes and the occupancy at its launch shape)
 _RESOURCES = {
     "hist": ("hist", "dtt_hist_resources", 0),
+    "encode": ("encode", "dtt_encode_resources", 0),
     "decode": ("decode", "dtt_decode_resources", 0),
     "decode_f32": ("decode", "dtt_decode_resources", 1),
     "decode_raw": ("decode", "dtt_decode_resources", 2),
+    "join": ("join", "dtt_join_resources", 0),
+    "join_f32": ("join", "dtt_join_resources", 1),
 }
 RESOURCE_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
                    "ctas_per_sm")

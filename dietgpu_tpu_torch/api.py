@@ -28,9 +28,11 @@ through the kernels, tensors on the CPU through their plain versions.
 
 Results equal the JAX API's: row b's archive ``comp[b, :sizes[b]]`` byte
 for byte, sizes, status, temp_mem and decoded tensors, and the same
-exceptions. Only the padded width of ``comp`` differs: the port pads to a
+exceptions. Only the padded width of ``comp`` differs: compress pads to a
 multiple of 4096 words or bytes, where the JAX package rounds the block
-count up to a power of two for its compile cache.
+count up to a power of two for its compile cache. Decompress reads and
+decodes at the JAX package's width (:func:`_bucket_words`), since what a
+too-small output or a lying header decodes to depends on it.
 """
 
 from typing import Sequence
@@ -114,6 +116,16 @@ def _rows(rows: Sequence[torch.Tensor], width: int) -> torch.Tensor:
 
 def _padded_width(n: int) -> int:
     return C.round_up(max(n, 1), C.DEFAULT_BLOCK_SIZE)
+
+
+def _bucket_words(max_words: int) -> int:
+    """A power-of-two number of 4096-word blocks, at least `max_words`: the
+    JAX API's decode width (``dietgpu_tpu.api._bucket_words``)."""
+    blocks = max(1, C.div_up(max_words, C.DEFAULT_BLOCK_SIZE))
+    p = 1
+    while p < blocks:
+        p *= 2
+    return p * C.DEFAULT_BLOCK_SIZE
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +282,6 @@ def decompress_data(
     ts_out: Sequence[torch.Tensor],
     checksum: bool = False,
     prob_bits: int = C.DEFAULT_PROB_BITS,
-    _static_sizes: bool = False,
 ):
     """Decompress archives into new tensors shaped and typed like ts_out
     (whose contents are not read).
@@ -279,13 +290,16 @@ def decompress_data(
     the archives' device. As in the reference, status[b] is 0 and sizes[b]
     holds the required byte count when ts_out[b] is too small
     (GpuANSCodec.h:213-223); a checksum mismatch raises ValueError
-    (DietGpu.cpp:617-620). Each archive is read up to the padded member
-    stride, and nothing past it.
+    (DietGpu.cpp:617-620). The batch decodes at the JAX API's width, the
+    largest output rounded up to a power-of-two number of 4096-word blocks
+    (:func:`_bucket_words`); each archive is read up to that width's
+    archive buffer, and nothing past it.
 
-    `_static_sizes` (internal, set by the `_simple` tier) promises every
-    ts_out[b] size equals its archive's stored size; when every member has
-    the same size, the decode then takes its block geometry from that size
-    (the JAX package's one-grid route).
+    The block geometry always comes from each archive's header, as on the
+    JAX API's XLA route. The JAX API's Pallas one-grid route (its
+    `_static_sizes`, set by the `_simple` tier for B > 1 without a
+    checksum) takes it from the sizes instead and fails a member whose
+    header's block count differs; the port has no such route.
     """
     B = len(ts_in)
     if B == 0 or len(ts_out) != B:
@@ -294,24 +308,16 @@ def decompress_data(
     if compress_as_float:
         ft = float_type_of(ts_out[0].dtype)
         caps = [t.numel() for t in ts_out]
-        Lw = _padded_width(max(caps))
+        Lw = _bucket_words(max(caps))
         arcs = _rows([_as_u8(t) for t in ts_in], codec.float_archive_buffer_bytes(ft, Lw))
-        static = _static_sizes and caps[0] > 0 and all(c == caps[0] for c in caps)
-        res = codec.float_decompress_batched(
-            arcs.view(torch.int32), ft, Lw, prob_bits, checksum,
-            static_length=caps[0] if static else None,
-        )
+        res = codec.float_decompress_batched(arcs.view(torch.int32), ft, Lw, prob_bits, checksum)
         out = res["out32"].view(_WORD[C.float_word_size(ft)])
         sizes_bytes = layout.to_i32(res["size"] * C.float_word_size(ft))
     else:
         caps = [_byte_length(t) for t in ts_out]
-        L = _padded_width(max(caps))
+        L = _bucket_words(max(caps))
         arcs = _rows([_as_u8(t) for t in ts_in], ans_encode.archive_buffer_bytes(L))
-        static = _static_sizes and caps[0] > 0 and all(c == caps[0] for c in caps)
-        res = cuda_decode.ans_decode_batched(
-            arcs, prob_bits, L, C.div_up(caps[0], C.DEFAULT_BLOCK_SIZE) if static else None,
-            checksum,
-        )
+        res = cuda_decode.ans_decode_batched(arcs, prob_bits, L, None, checksum)
         out = res["out"]
         sizes_bytes = layout.to_i32(res["size"])
     ok = res["success"] & (res["size"] <= torch.tensor(caps, dtype=torch.int64, device=dev))
@@ -346,8 +352,7 @@ def decompress_data_simple(
     # reference never asks the caller for it on decode (GpuANSDecode.cuh:323)
     prob_bits = infos[0]["prob_bits"]
     outs, status, _, _ = decompress_data(
-        compress_as_float, ts_in, specs, checksum, prob_bits, _static_sizes=True,
-    )
+        compress_as_float, ts_in, specs, checksum, prob_bits)
     if not bool(status.bool().all()):
         raise ValueError("decompression failed")
     return outs

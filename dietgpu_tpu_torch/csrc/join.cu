@@ -12,19 +12,27 @@
 // once (4 B), 8 B per word; all over 3.35 TB/s. A handful of byte
 // permutes per word is far below the operations bound.
 //
-// Design: a grid-stride elementwise pass. The unit is one u32 of the
-// exponent plane, i.e. 4 words. f16/bf16: that u32 and the matching u32 of
-// the nonComp plane become two output word pairs, each built by one
-// __byte_perm ((exp << 8) | raw per 16-bit half), then rotated right by
-// 1 within each half for bf16. f32: the exponent and high u32 are
-// interleaved by two __byte_perm, each word is completed with its low u16
-// by one more, then rotated right by 1 (__funnelshift_r). When every
-// plane's rows are 16-byte aligned, each thread takes 4 units at once: one
-// 16-byte load per plane (two for the f32 low plane) and 16-byte stores,
-// so every access is a full-width coalesced line; a unit past the last
-// whole 4 (an unaligned n4) takes the scalar form. Otherwise every unit
-// takes the scalar form: 4-byte loads and one 8-byte (f16/bf16) or 16-byte
-// (f32) store.
+// Design: a grid-stride elementwise pass over units of 4 words: one u32
+// of the exponent plane.
+//
+// - f16/bf16: the exponent u32 and the matching u32 of the nonComp plane
+//   become two output word pairs, each built by one __byte_perm ((exp << 8)
+//   | raw per 16-bit half), then rotated right by 1 within each half for
+//   bf16. When every plane's rows are 16-byte aligned, each thread takes 4
+//   units at once: one 16-byte load per plane and 16-byte stores; a unit
+//   past the last whole 4 (an unaligned n4) takes the scalar form.
+//   Otherwise every unit takes the scalar form: 4-byte loads and one 8-byte
+//   store.
+// - f32: one thread a unit, consecutive lanes on consecutive units, so
+//   every access of a warp is one contiguous run: 128 bytes of the exponent
+//   plane, 128 of the high plane, 256 of the low plane (one 8-byte load a
+//   lane when the low plane's rows are 8-byte aligned, else two 4-byte
+//   loads, which is the unaligned route) and one 16-byte store a lane, 512
+//   bytes. The exponent and high u32 are interleaved by two __byte_perm,
+//   each word is completed with its low u16 by one more, then rotated right
+//   by 1 (__funnelshift_r). The grid covers every unit: on the card this
+//   reads as fast as a copy_ of the same bytes, and one wave of threads
+//   that each loaded 4 units a grid stride apart read slower.
 //
 // Batched: grid y is the member. Member m reads row m of each plane (at its
 // own row stride, so a plane may sit inside a larger buffer) and writes row
@@ -104,7 +112,7 @@ join_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ n
   }
 }
 
-template <bool kVec>
+template <bool kLo8>
 __global__ void __launch_bounds__(kThreads)
 join_f32_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ lo_all,
                 const uint32_t* __restrict__ hi_all, long long n4,
@@ -116,27 +124,18 @@ join_f32_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict
   const uint32_t* __restrict__ hi = hi_all + m * hi_stride32;
   uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out_all + m * out_stride32);
   const long long stride = (long long)gridDim.x * kThreads;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  long long first = 0;
-  if (kVec) {
-    const long long n16 = n4 / 4;
-    const uint4* __restrict__ e4 = reinterpret_cast<const uint4*>(exp);
-    const uint4* __restrict__ h4 = reinterpret_cast<const uint4*>(hi);
-    const uint4* __restrict__ l4 = reinterpret_cast<const uint4*>(lo);
-    for (long long i = t; i < n16; i += stride) {
-      const uint4 e = e4[i];
-      const uint4 h = h4[i];
-      const uint4 la = l4[2 * i];
-      const uint4 lb = l4[2 * i + 1];
-      o4[4 * i] = join_f32x4(e.x, h.x, la.x, la.y);
-      o4[4 * i + 1] = join_f32x4(e.y, h.y, la.z, la.w);
-      o4[4 * i + 2] = join_f32x4(e.z, h.z, lb.x, lb.y);
-      o4[4 * i + 3] = join_f32x4(e.w, h.w, lb.z, lb.w);
+  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n4; j += stride) {
+    uint32_t l0;
+    uint32_t l1;
+    if (kLo8) {
+      const uint2 l = reinterpret_cast<const uint2*>(lo)[j];
+      l0 = l.x;
+      l1 = l.y;
+    } else {
+      l0 = lo[2 * j];
+      l1 = lo[2 * j + 1];
     }
-    first = 4 * n16;
-  }
-  for (long long j = first + t; j < n4; j += stride) {
-    o4[j] = join_f32x4(exp[j], hi[j], lo[2 * j], lo[2 * j + 1]);
+    o4[j] = join_f32x4(exp[j], hi[j], l0, l1);
   }
 }
 
@@ -193,14 +192,15 @@ extern "C" int dtt_join_f32(const void* exp, const void* lo, const void* hi,
                             long long exp_stride32, long long lo_stride32,
                             long long hi_stride32, long long out_stride32, void* stream) {
   if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
-  const bool vec = aligned16(exp, exp_stride32) && aligned16(lo, lo_stride32) &&
-                   aligned16(hi, hi_stride32);
-  const dim3 grid((unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch), (unsigned)batch);
+  const bool lo8 = reinterpret_cast<uintptr_t>(lo) % 8 == 0 && lo_stride32 % 2 == 0;
+  // a unit a thread: a grid over every unit, not one wave
+  const long long blocks = (n4 + kThreads - 1) / kThreads;
+  const dim3 grid((unsigned)(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL), (unsigned)batch);
   const auto* e = static_cast<const uint32_t*>(exp);
   const auto* l = static_cast<const uint32_t*>(lo);
   const auto* h = static_cast<const uint32_t*>(hi);
   auto* o = static_cast<uint32_t*>(out);
-  if (vec) {
+  if (lo8) {
     join_f32_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
   } else {
@@ -208,4 +208,25 @@ extern "C" int dtt_join_f32(const void* exp, const void* lo, const void* hi,
         e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
   }
   return (int)cudaGetLastError();
+}
+
+// The resources of configuration `config` (0 the f16/bf16 join on 16-byte
+// aligned rows, 1 the f32 join on 8-byte aligned low-plane rows):
+// registers a thread, static and dynamic shared bytes a CTA, local
+// (spilled) bytes a thread, threads a CTA and CTAs per SM, into out[0..5].
+extern "C" int dtt_join_resources(int config, int* out) {
+  const void* fn = config == 1 ? reinterpret_cast<const void*>(join_f32_kernel<true>)
+                               : reinterpret_cast<const void*>(join_kernel<true>);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = kThreads;
+  out[5] = per_sm;
+  return (int)e;
 }

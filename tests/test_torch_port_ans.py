@@ -198,6 +198,64 @@ def test_decode_lut_matches_oracle():
         np.testing.assert_array_equal(got, want)
 
 
+def _encode_kernel_matches_plain(dev, data, lengths, pb):
+    """The encode kernel against its plain version on a (B, Lb) uint8
+    batch on the card, each member with the table of its own first
+    lengths[m] bytes (`lengths` an int for every member, or B ints, passed
+    on the card): staged words up to each block's count, counts and states
+    equal. Returns the counts."""
+    lens = [lengths] * data.shape[0] if isinstance(lengths, int) else list(lengths)
+    hist = torch.stack([torch.bincount(data[m, :n].long(), minlength=256)
+                        for m, n in enumerate(lens)])
+    totals = torch.tensor(lens, dtype=torch.int64, device=dev)
+    tables = pencode.encode_table(stats.normalize_probs(hist, totals, pb))
+    n = lengths if isinstance(lengths, int) else totals
+    d32 = data.view(torch.int32)
+    staged, counts, states = cuda_encode.encode_blocks_batched_cuda(d32, n, pb, tables)
+    pst, pco, pss = pencode.encode_blocks_batched(d32, n, pb, tables)
+    assert torch.equal(counts, pco) and torch.equal(states, pss)
+    keep = torch.arange(staged.shape[1], device=dev)[None, :] < counts.long()[:, None]
+    assert torch.equal(torch.where(keep, staged, 0), torch.where(keep, pst, 0))
+    return counts
+
+
+def _encode_kernel_on_risky_inputs(dev):
+    """The encode kernel on the inputs its design is at risk on, as
+    chip_smoke.py's slice-6 phase holds it: constant bytes (no emission),
+    alternating and uniform random bytes (the most emission) at prob_bits
+    9-11, an overflowing block at 11, lengths at every edge of a block,
+    one-block members, a ragged batch whose members cross the persistent
+    CTAs' shares, B = 1 and B = 513 (past one round of the member scan)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    Lb = 1 << 20
+    fills = {
+        "constant": torch.zeros((1, Lb), dtype=torch.uint8, device=dev),
+        "alternating": torch.tensor([1, 254], dtype=torch.uint8, device=dev).repeat(Lb // 2)[None],
+        "uniform": torch.randint(0, 256, (1, Lb), dtype=torch.uint8, device=dev, generator=g),
+    }
+    for name, d in fills.items():
+        for pb in C.SUPPORTED_PROB_BITS:
+            counts = _encode_kernel_matches_plain(dev, d, Lb, pb)
+            assert name != "constant" or int(counts.max()) == 0
+    rare = torch.arange(1, 256, dtype=torch.uint8, device=dev).repeat(17)[:4096]
+    ovf = torch.cat([torch.zeros(16 * 4096, dtype=torch.uint8, device=dev), rare])[None]
+    assert int(_encode_kernel_matches_plain(dev, ovf, ovf.shape[1], 11).max()) > 2560
+    short = [1, 31, 33, 4095, 4096, 4097]
+    d = torch.randint(0, 256, (len(short), 8192), dtype=torch.uint8, device=dev, generator=g)
+    for n in short:
+        _encode_kernel_matches_plain(dev, d[:1], n, 10)
+    _encode_kernel_matches_plain(dev, d, short, 10)
+    rng = np.random.default_rng(6)
+    for B, nb, empty in ((64, 1, 0.0), (37, 64, 0.2), (513, 2, 0.3), (1, 3, 0.0)):
+        lens = rng.integers(1, nb * 4096 + 1, B)
+        lens[rng.random(B) < empty] = 0
+        data = np.minimum(rng.exponential(20, (B, nb * 4096)), 255).astype(np.uint8)
+        data = torch.from_numpy(data).to(dev)
+        for pb in C.SUPPORTED_PROB_BITS:
+            _encode_kernel_matches_plain(dev, data, lens.tolist(), pb)
+    _encode_kernel_matches_plain(dev, data[:1].expand(513, -1).contiguous(), 5000, 10)
+
+
 @pytest.mark.gpu
 def test_encode_and_assembly_kernels_match_plain(cuda_device):
     rng = np.random.default_rng(11)
@@ -226,3 +284,4 @@ def test_encode_and_assembly_kernels_match_plain(cuda_device):
     np.testing.assert_array_equal(
         interop.archive_to_numpy(arc_k[0], int(size[0])), np.asarray(jarc)[: int(size[0])]
     )
+    _encode_kernel_on_risky_inputs(cuda_device)

@@ -360,3 +360,138 @@ def test_api_on_card_matches_cpu(cuda_device, rng):
                                             for t in map(torch.from_numpy, xs[2:])])
     outs = papi.decompress_data_simple(True, arcs)
     assert all(o.is_cuda for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# decode width and block geometry: inputs whose result depends on them
+# ---------------------------------------------------------------------------
+
+
+def _front_ends(front):
+    """decompress_data and decompress_data_simple of both packages through
+    `front`: "api" (functional) or "torch_api" (in place, into outputs that
+    start as a known sentinel)."""
+    from dietgpu_tpu import torch_api as jtapi
+
+    from dietgpu_tpu_torch import torch_api as ptapi
+
+    if front == "api":
+        def jdec(ca, arcs, like, ck):
+            outs, st, sz, tm = japi.decompress_data(
+                ca, [jnp.asarray(a.numpy()) for a in arcs],
+                [jnp.zeros(t.shape, _JNP[t.dtype]) for t in like], ck)
+            return [to_torch(o) for o in outs], st, sz, tm
+
+        def pdec(ca, arcs, like, ck):
+            return papi.decompress_data(ca, arcs, [torch.empty_like(t) for t in like], ck)
+
+        def jsimple(ca, arcs):
+            return [to_torch(o) for o in
+                    japi.decompress_data_simple(ca, [jnp.asarray(a.numpy()) for a in arcs])]
+
+        return jdec, pdec, jsimple, papi.decompress_data_simple
+
+    def in_place(fn):
+        def dec(ca, arcs, like, ck):
+            outs = [torch.full_like(t.view(torch.uint8), 7).view(t.dtype) for t in like]
+            st, sz, tm = fn(ca, arcs, outs, checksum=ck)
+            return outs, st, sz, tm
+        return dec
+
+    return (in_place(jtapi.decompress_data), in_place(ptapi.decompress_data),
+            jtapi.decompress_data_simple, ptapi.decompress_data_simple)
+
+
+_JNP = {torch.uint8: jnp.uint8, torch.bfloat16: jnp.bfloat16}
+
+
+def _archive(rng, kind, n, checksum):
+    """One archive of n random bytes (raw) or words (bf16) through the JAX
+    API, as a CPU tensor of its exact size, and the input."""
+    if kind == "raw":
+        x = jnp.asarray(rng.integers(0, 50, size=n, dtype=np.uint8))
+    else:
+        x = jnp.asarray(rng.standard_normal(n).astype(np.float32)).astype(jnp.bfloat16)
+    comp, sizes, _ = japi.compress_data(kind != "raw", [x], checksum)
+    return to_torch(np.asarray(comp)[0, : int(sizes[0])]), to_torch(x)
+
+
+def _lie_block_count(arc, kind, nb):
+    """A copy of the archive whose ANS header (the one embedded after the
+    float header, for a float archive) claims `nb` blocks."""
+    arc = arc.clone()
+    start = 0
+    if kind != "raw":
+        start = papi.get_compressed_info(True, [arc])[0]["ans_start"]
+    arc[start + 4 : start + 8] = torch.tensor([nb], dtype=torch.int32).view(torch.uint8)
+    return arc
+
+
+def _same_outcome(jfn, pfn):
+    """Both calls raise the same exception, or return equal outputs."""
+    try:
+        jres = jfn()
+    except ValueError as e:
+        with pytest.raises(ValueError) as pe:
+            pfn()
+        assert str(pe.value) == str(e)
+        return None
+    pres = pfn()
+    for j, p in zip(jres, pres):
+        assert tuple(p.shape) == tuple(j.shape) and p.dtype == j.dtype
+        np.testing.assert_array_equal(bits(p), bits(j))
+    return pres
+
+
+@pytest.mark.parametrize("front", ["api", "torch_api"])
+@pytest.mark.parametrize("kind", ["raw", "bf16"])
+def test_too_small_output_with_checksum_matches_jax(rng, front, kind):
+    """12289 bytes or words, checksummed, into an output of 8193: the JAX
+    API decodes at 4 blocks (its power-of-two width), so the whole archive
+    decodes, the checksum holds and the member reports status 0 with its
+    size; at 3 blocks the archive would be cut and the checksum fail."""
+    jdec, pdec, _, _ = _front_ends(front)
+    arc, x = _archive(rng, kind, 12289, True)
+    like = [x[:8193]]
+    jouts, jst, jsz, jtm = jdec(kind != "raw", [arc], like, True)
+    pouts, pst, psz, ptm = pdec(kind != "raw", [arc], like, True)
+    assert np.asarray(pst).tolist() == np.asarray(jst).tolist() == [0]
+    assert np.asarray(psz).tolist() == np.asarray(jsz).tolist() == [12289 * x.element_size()]
+    assert ptm == jtm
+    if front == "torch_api":  # a member with status 0 is left as it was
+        np.testing.assert_array_equal(bits(pouts[0]), bits(jouts[0]))
+
+
+@pytest.mark.parametrize("front", ["api", "torch_api"])
+@pytest.mark.parametrize("nb", [4, 5, 100])
+def test_lying_block_count_decodes_at_jax_width(rng, front, nb):
+    """A 9000-byte raw archive whose header claims 4, 5 or 100 blocks (3
+    are true), into 9000 bytes: the count is clamped to the decode width's
+    blocks, so the bytes decoded past the true blocks follow the width. The
+    JAX API's is 4 blocks; status, sizes and bytes must be its."""
+    jdec, pdec, _, _ = _front_ends(front)
+    arc, x = _archive(rng, "raw", 9000, False)
+    arc = _lie_block_count(arc, "raw", nb)
+    jouts, jst, jsz, jtm = jdec(False, [arc], [x], False)
+    pouts, pst, psz, ptm = pdec(False, [arc], [x], False)
+    assert np.asarray(pst).tolist() == np.asarray(jst).tolist()
+    assert np.asarray(psz).tolist() == np.asarray(jsz).tolist() and ptm == jtm
+    np.testing.assert_array_equal(bits(pouts[0]), bits(jouts[0]))
+
+
+@pytest.mark.parametrize("front", ["api", "torch_api"])
+@pytest.mark.parametrize("kind", ["raw", "bf16"])
+@pytest.mark.parametrize("nb", [2, 4])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_simple_tier_lying_block_count_matches_jax(rng, front, kind, nb, batch):
+    """decompress_data_simple on a 9000-byte (raw) or 9000-word (bf16)
+    archive whose ANS header claims 2 or 4 blocks (3 are true). The JAX
+    API takes the block geometry from the header on its CPU route, at B = 1
+    and at B > 1 (only its TPU one-grid route takes it from the sizes), and
+    so does the port: the same outputs, or the same exception."""
+    _, _, jsimple, psimple = _front_ends(front)
+    arcs = []
+    for m in range(batch):
+        arc, _ = _archive(rng, kind, 9000, False)
+        arcs.append(_lie_block_count(arc, kind, nb) if m == 0 else arc)
+    _same_outcome(lambda: jsimple(kind != "raw", arcs), lambda: psimple(kind != "raw", arcs))

@@ -140,16 +140,65 @@ def test_decode_odd_stream_starts_match_jax():
     np.testing.assert_array_equal(res["out"].numpy(), d)
 
 
-@pytest.mark.parametrize("lengths", [RAGGED, EQUAL], ids=["ragged", "equal"])
+# the lengths that end a block's steps or the block itself at every edge
+SHORT = [1, 31, 33, 4095, 4096, 4097]
+OVERFLOW_LEN = 17 * C.DEFAULT_BLOCK_SIZE
+
+
+def _overflow_batch():
+    """16 blocks of zeros, then a block of the 255 other byte values: at
+    prob_bits 11 each of those has weight 1 and the block emits more than
+    2560 words; at 10 and 9 it emits at most 2560."""
+    rare = np.tile(np.arange(1, 256, dtype=np.uint8), 17)[: C.DEFAULT_BLOCK_SIZE]
+    return np.concatenate([np.zeros(OVERFLOW_LEN - rare.size, np.uint8), rare])[None]
+
+
+def _encode_stage_matches_jax(d, n, pb, pdf):
+    """The plain encode of one member against the JAX XLA encoder's
+    interleaved stage (``_encode_core``): final states, each block's word
+    count and its first 2560 emitted words in (step, lane) order."""
+    tables = pencode.encode_table(torch.from_numpy(pdf.astype(np.int64)))[None]
+    staged, counts, states = pencode.encode_blocks_batched(
+        torch.from_numpy(d).view(torch.int32)[None], n, pb, tables)
+    jstates, vals, mask = jax.jit(jencode._encode_core, static_argnums=2)(
+        jnp.asarray(d), n, pb, jnp.asarray(pdf))
+    vals, mask = np.asarray(vals).reshape(len(counts), -1), np.asarray(mask).reshape(len(counts), -1)
+    np.testing.assert_array_equal(states.numpy().view(np.uint32), np.asarray(jstates))
+    np.testing.assert_array_equal(counts.numpy(), mask.sum(1))
+    for b, c in enumerate(counts.tolist()):
+        want = vals[b][mask[b]][: C.MAX_COMP_WORDS_PER_BLOCK].astype(np.uint16)
+        np.testing.assert_array_equal(staged[b, : min(c, C.MAX_COMP_WORDS_PER_BLOCK)].numpy()
+                                      .view(np.uint16), want, err_msg=f"block {b}")
+    return counts
+
+
+@pytest.mark.parametrize("lengths", [RAGGED, EQUAL, SHORT, [OVERFLOW_LEN]],
+                         ids=["ragged", "equal", "short", "overflow"])
 @pytest.mark.parametrize("pb", C.SUPPORTED_PROB_BITS)
 def test_encode_batched_matches_jax_per_member(pb, lengths):
     """Each member's archive equals the JAX XLA encoder's and the oracle's;
-    it decodes in JAX, and the batch decodes in the port."""
-    d = _batch(pb, lengths)
+    it decodes in JAX, and the batch decodes in the port. The cases: ragged
+    and equal lengths, lengths at every edge of a block's steps and of the
+    block, and a block that overflows 2560 words at prob_bits 11, whose
+    size carries the overflow bit in both packages, which the oracle
+    refuses, and whose encode stage equals the JAX encoder's."""
+    overflow = lengths == [OVERFLOW_LEN]
+    d = _overflow_batch() if overflow else _batch(pb, lengths)
+    size = d.shape[1]
     for ck in (False, True):
         arcs, sizes = port.ans_encode_batched(torch.from_numpy(d), lengths, None, pb, ck)
-        assert arcs.shape == (3, pencode.archive_buffer_bytes(L) // 4)
+        assert arcs.shape == (len(lengths), pencode.archive_buffer_bytes(size) // 4)
         assert sizes.dtype == torch.int64
+        if overflow and pb == 11:
+            jarc, jsize = _enc_jit(jnp.asarray(d[0]), OVERFLOW_LEN, pb, ck)
+            assert int(sizes[0]) == int(jsize) and int(jsize) & C.SIZE_OVERFLOW_BIT
+            with pytest.raises(OverflowError):
+                ans_ref.ans_encode(d[0], pb, use_checksum=ck)
+            pdf = ans_ref.normalize_probs(np.bincount(d[0], minlength=256).astype(np.uint32),
+                                          OVERFLOW_LEN, pb)
+            counts = _encode_stage_matches_jax(d[0], OVERFLOW_LEN, pb, pdf)
+            assert int(counts.max()) > C.MAX_COMP_WORDS_PER_BLOCK
+            continue
         got = interop.archives_batch_to_numpy(arcs, sizes)
         for m, n in enumerate(lengths):
             want = _jax_archive(d[m], n, pb, ck)
@@ -157,7 +206,7 @@ def test_encode_batched_matches_jax_per_member(pb, lengths):
             np.testing.assert_array_equal(
                 got[m], ans_ref.ans_encode(d[m, :n], pb, use_checksum=ck), err_msg=f"member {m}"
             )
-            jres = _dec_jit(jnp.asarray(interop.archive_to_numpy(arcs[m])), pb, L, ck)
+            jres = _dec_jit(jnp.asarray(interop.archive_to_numpy(arcs[m])), pb, size, ck)
             assert bool(jres["success"]) and bool(jres["checksum_ok"])
             np.testing.assert_array_equal(np.asarray(jres["out"]), d[m])
         # the same bytes packed as int32 give the same archives
@@ -166,7 +215,7 @@ def test_encode_batched_matches_jax_per_member(pb, lengths):
         assert torch.equal(s32, sizes)
         for a, b in zip(got, interop.archives_batch_to_numpy(a32, s32)):
             np.testing.assert_array_equal(a, b)
-        res = port.ans_decode_batched(arcs, pb, L, verify_checksum=ck)
+        res = port.ans_decode_batched(arcs, pb, size, verify_checksum=ck)
         assert res["success"].all() and res["checksum_ok"].all()
         assert res["size"].tolist() == lengths
         np.testing.assert_array_equal(res["out"].numpy(), d)
@@ -361,7 +410,8 @@ def test_resource_entries_match_the_c_signatures():
     entry writes."""
     import re
 
-    assert set(_build._RESOURCES) == {"hist", "decode", "decode_f32", "decode_raw"}
+    assert set(_build._RESOURCES) == {"hist", "encode", "decode", "decode_f32", "decode_raw",
+                                      "join", "join_f32"}
     for name, (source, sym, config) in _build._RESOURCES.items():
         text = (_build.CSRC / f"{source}.cu").read_text()
         params = re.search(rf'extern "C" int {sym}\(([^)]*)\)', text).group(1)

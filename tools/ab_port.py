@@ -11,8 +11,10 @@ words), B (128Mi f32 words) and C (2^28 raw bytes) of chip_smoke.py, with
 inputs made as chip_smoke.py makes them, prob_bits 10, no checksum, 20
 calls each: the CUDA-event ms per call, and the host's enqueue ms per call
 (until the call returns, before synchronising), where the glue between the
-kernels shows; and the hist and decode kernels alone at chip_smoke.py's
-rows of paths A-F, called as the main paths call them. Two versions are
+kernels shows; and the hist, encode and decode kernels alone at
+chip_smoke.py's rows of paths A-F, split_f32 at path B's, the ragged
+split at path H's and the f32 join at path J's, called as the main paths
+call them. Two versions are
 compared only within one such run. Each child also counts, with
 torch.profiler over 10 compress calls, the CUDA
 runtime calls a compress makes (kernel launches, copies, stream
@@ -33,17 +35,46 @@ from pathlib import Path
 ITERS = 20
 
 
+def encode_row(timed, data32, length, prob_bits, hist, totals):
+    """The encode kernel alone on (B, L/4) int32 symbols, each member with
+    the table of its own histogram, called as the compress paths call it."""
+    from dietgpu_tpu_torch.ans import cuda_encode, stats
+    from dietgpu_tpu_torch.ans import encode as plain_encode
+
+    tables = plain_encode.encode_table(stats.normalize_probs(hist, totals, prob_bits))
+    return timed(lambda: cuda_encode.encode_blocks_batched_cuda(data32, length, prob_bits, tables))
+
+
 def kernel_rows(port, timed, bf16, f32, raw, arc_c):
-    """The hist and decode kernels alone at chip_smoke.py's rows: A, B, C
-    (the inputs above) and the batches D, E, F made as chip_smoke.py makes
-    them, called as the main paths call them."""
+    """The hist, encode, decode, split_f32, ragged split and f32 join kernels
+    alone at chip_smoke.py's rows: A, B, C, J (the inputs above), the
+    batches D, E, F made as chip_smoke.py makes them and H's lengths, called
+    as the main paths call them."""
     import numpy as np
     import torch
 
     from dietgpu_tpu_torch.ans import cuda_decode, cuda_hist
+    from dietgpu_tpu_torch.floatcodec import cuda_float
 
     n, L = 128 << 20, 1 << 28
     out = {}
+    exp32, _, hist, _ = cuda_float.split_words_batched_cuda(bf16[None], n, 2)
+    out["kernel encode (A)"] = encode_row(timed, exp32, n, 10, hist, n)
+    out["kernel split_f32 (B)"] = timed(
+        lambda: cuda_float.split_words_f32_batched_cuda(f32[None], n))
+    e32, lo, hi, _, _ = cuda_float.split_words_f32_batched_cuda(f32[None], n)
+    out["kernel join_f32 (J)"] = timed(lambda: cuda_float.join_words_f32_cuda(e32, lo, hi))
+    del exp32, e32, lo, hi
+    # path H's ragged split: 64 members of 512Ki-2Mi words, the lengths on
+    # the card as float_compress_batched passes them
+    lens_h = np.random.default_rng(0).integers(1 << 19, (1 << 21) + 1, 64).tolist()
+    width = -(-max(lens_h) // 4096) * 4096
+    pairs_h = torch.randint(-(1 << 31), 1 << 31, (64, width // 2), dtype=torch.int32,
+                            device="cuda")
+    lens_t = torch.tensor(lens_h, dtype=torch.int64, device="cuda")
+    out["kernel split_ragged (H)"] = timed(
+        lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, 2, lengths_t=lens_t))
+    del pairs_h
     raw32 = raw.view(torch.int32)
     out["kernel hist (C)"] = timed(lambda: cuda_hist.histogram_u8_batched_cuda(raw32[None], [L]))
     out["kernel decode_raw (C)"] = timed(
@@ -57,6 +88,9 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     words_e = torch.from_numpy(x.view(np.int32)).cuda()
     words_d = (words_e >> 16).to(torch.int16).view(torch.int32)
     del x
+    exp_d, _, hist_d, _ = cuda_float.split_words_batched_cuda(words_d, Lm, 2)
+    out["kernel encode_batched (D)"] = encode_row(timed, exp_d, Lm, 10, hist_d, Lm)
+    del exp_d
     for row, ft, w in (("decode_batched (D)", 2, words_d), ("decode_f32_batched (E)", 3, words_e)):
         a, _ = port.float_compress_batched(w, Lm, ft, 10, False)
         out[f"kernel {row}"] = timed(
@@ -74,6 +108,8 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     d32 = data.view(torch.int32)
     out["kernel hist_batched (F)"] = timed(
         lambda: cuda_hist.histogram_u8_batched_cuda(d32, lengths, False, lengths_t))
+    hist_f, _ = cuda_hist.histogram_u8_batched_cuda(d32, lengths, False, lengths_t)
+    out["kernel encode_batched (F)"] = encode_row(timed, d32, lengths_t, 10, hist_f, lengths_t)
     arcs, _ = port.ans_encode_batched(data, lengths, None, 10, False)
     out["kernel decode_raw_batched (F)"] = timed(
         lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, cap))
