@@ -10,8 +10,8 @@ result line:
 
 1. build    -- compiles every source of ``dietgpu_tpu_torch/csrc/`` with
                nvcc for sm_90a, all in parallel, into ``build/``, and
-               prints the resources of the hist, encode, decode and join
-               kernels (registers, static and dynamic shared bytes, spill
+               prints the resources of the split, hist, encode, decode and
+               join kernels (registers, static and dynamic shared bytes, spill
                bytes, threads and CTAs per SM) on progress lines;
 2. kernels  -- each of the ten kernels (split, split_f32, hist, encode,
                assembly, decode in three configurations, join in two;
@@ -35,7 +35,14 @@ result line:
                one-block members, ragged batches that cross the
                persistent CTAs' shares, B = 1 and B = 513, path C's 2^28
                bytes; low-plane rows that are not 8-byte aligned, an n4
-               that is not a multiple of 4, a batch;
+               that is not a multiple of 4, a batch; and the split on
+               its: constant words, alternating exponents and uniformly
+               random words at lengths 0-9 and around 4096, alone and in a
+               ragged batch, batches across the persistent CTAs' shares,
+               B = 513 and 65537, path A's size in uniform words; and
+               65537 members (more than a launch's grid y holds) through
+               float_compress_batched / float_decompress_batched in bf16
+               and f32 and through both joins;
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -93,7 +100,8 @@ path. The kernels line has a row for each kernel at each path's shapes
 that runs it: the single paths' rows (split ... decode_f32), the batched
 paths' (split_batched ... decode_raw_batched), which are the same kernels
 at paths D-F's shapes, the split at path H's ragged lengths
-(split_ragged), and the joins at path J's (join, join_f32).
+(split_ragged, timed with the lengths on the card, as the compress path
+passes them), and the joins at path J's (join, join_f32).
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
@@ -937,6 +945,162 @@ def phase2_slice6(port, dev):
     log("  encode and join_f32: the same outputs as the plain versions on every input")
 
 
+BIG_BATCH = 65537  # members: one more than a launch's grid y holds
+
+
+def big_batch_split(dev):
+    """The split kernel at BIG_BATCH ragged members of up to 4096 uniformly
+    random words (more than 256 rounds of its member scan), five members
+    held against the plain version."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    lens = np.random.default_rng(65537).integers(0, 4097, BIG_BATCH).tolist()
+    w = torch.randint(-(1 << 31), 1 << 31, (BIG_BATCH, 2048), dtype=torch.int32, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(72))
+    got = cuda_float.split_words_batched_cuda(w, lens, C.FLOAT_TYPE_BFLOAT16, True)
+    for m in (0, 1, BIG_BATCH // 2, BIG_BATCH - 2, BIG_BATCH - 1):
+        require_exact(f"split at {BIG_BATCH} ragged members, member {m}", zip(
+            (x[m] for x in got),
+            cuda_float.split_words_plain(w[m], lens[m], C.FLOAT_TYPE_BFLOAT16, True)))
+
+
+def big_batch_float(port, dev, ft):
+    """BIG_BATCH members of 4096 words (standard normal) through
+    float_compress_batched and float_decompress_batched: the roundtrip is
+    exact, and the archives of members 0, 65535 and 65536 equal their
+    single-tensor archives."""
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import codec
+
+    n = C.DEFAULT_BLOCK_SIZE
+    x = torch.randn((BIG_BATCH, n), generator=torch.Generator(device=dev).manual_seed(ft),
+                    device=dev)
+    w = x.view(torch.int32) if ft == C.FLOAT_TYPE_FLOAT32 else (x.view(torch.int32) >> 16).to(
+        torch.int16)
+    del x
+    arcs, sizes = port.float_compress_batched(w, n, ft, 10, False)
+    res = port.float_decompress_batched(arcs, ft, n, 10, False, static_length=n)
+    require(bool(res["success"].all()), f"{BIG_BATCH} members ft={ft}: decode failed its status")
+    require(torch.equal(res["out32"], w.view(torch.int32)),
+            f"{BIG_BATCH} members ft={ft}: roundtrip differs")
+    del res
+    for m in (0, BIG_BATCH - 2, BIG_BATCH - 1):
+        a, s = codec.float_compress_padded(w[m], n, ft, 10, False)
+        require_exact(f"{BIG_BATCH} members ft={ft}: member {m}'s archive vs its single-tensor "
+                      "archive", [(sizes[m], s), (arcs[m, : int(s) // 4], a[: int(s) // 4])])
+
+
+def big_batch_joins(port, dev):
+    """join_words_packed and join_words_packed_f32 at BIG_BATCH members of
+    1024 exponent u32: members 0 and 65536 equal their plain joins."""
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(width):
+        return torch.randint(-(1 << 31), 1 << 31, (BIG_BATCH, width), dtype=torch.int32,
+                             device=dev, generator=g)
+
+    n4 = 1024
+    e, c, lo, hi = rand(n4), rand(n4), rand(2 * n4), rand(n4)
+    rows = [0, BIG_BATCH - 1]
+    ft = C.FLOAT_TYPE_BFLOAT16
+    require_exact(f"join at {BIG_BATCH} members, members {rows}",
+                  [(port.join_words_packed(e, c, ft)[rows],
+                    cuda_float.join_words_plain(e[rows], c[rows], ft))])
+    require_exact(f"join_f32 at {BIG_BATCH} members, members {rows}",
+                  [(port.join_words_packed_f32(e, lo, hi)[rows],
+                    cuda_float.join_words_f32_plain(e[rows], lo[rows], hi[rows]))])
+
+
+def phase2_slice7(port, dev):
+    """The redesigned split kernel against its plain version, bit for bit
+    (planes, histogram, checksum), on the inputs its design is at risk on:
+    constant words, alternating exponents and uniformly random words (every
+    exponent byte) at member lengths 0, 1, 7, 8, 9, 4095, 4096, 4097 and
+    Lw, alone and as one ragged batch; nonComp rows 8 bytes past a 16-byte
+    boundary; ragged batches whose members cross the persistent CTAs'
+    shares; B = 513 (more than one round of the member scan); uniformly
+    random words at path A's 128Mi (path A's normal words are held in phase
+    3). The pairs' rows must be 16-byte aligned (the wrapper rejects
+    others). Then batches of 65537 members, one more than a launch's grid y
+    holds: ragged through the split, and through the compress and
+    decompress kernels in bf16 and f32 and through both joins."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import _build
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    log(f"  resources of split: {_build.kernel_resources('split')}")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    Lw = 4 * C.DEFAULT_BLOCK_SIZE
+    edges = [0, 1, 7, 8, 9, 4095, 4096, 4097, Lw]
+    B = len(edges)
+
+    def case(what, pairs, lengths, ft, ck=True, nc_out=None, nc_plain=None):
+        require_exact(what, zip(
+            cuda_float.split_words_batched_cuda(pairs, lengths, ft, ck, nc_out),
+            cuda_float.split_words_batched_plain(pairs, lengths, ft, ck, nc_plain)))
+
+    for ft in (C.FLOAT_TYPE_FLOAT16, C.FLOAT_TYPE_BFLOAT16):
+        one = 0x3F80 if ft == C.FLOAT_TYPE_BFLOAT16 else 0x3C00  # 1.0
+        big = 0x4780 if ft == C.FLOAT_TYPE_BFLOAT16 else 0x7800  # 65536 or 32768
+        fills = {
+            "constant": torch.full((B, Lw), one, dtype=torch.int16, device=dev),
+            "alternating exponents": torch.tensor([one, big], dtype=torch.int32, device=dev)
+            .repeat(B * Lw // 2).view(B, Lw).to(torch.int16),
+            "uniform": torch.randint(-(1 << 15), 1 << 15, (B, Lw), dtype=torch.int16,
+                                     device=dev, generator=gen),
+        }
+        for name, w in fills.items():
+            pairs = w.view(torch.int32)
+            for n in edges:
+                for ck in (False, True):
+                    case(f"split ft={ft} {name} n={n} ck={ck}", pairs[:1], n, ft, ck)
+            case(f"split ft={ft} {name} lengths={edges}", pairs, edges, ft)
+            wide = torch.full((B, Lw // 4 + 4), -1, dtype=torch.int32, device=dev)
+            plain = wide.clone()
+            case(f"split ft={ft} {name} lengths={edges}, nonComp rows 8 bytes past 16",
+                 pairs, edges, ft, True, wide[:, 2 : 2 + Lw // 4], plain[:, 2 : 2 + Lw // 4])
+        rng = np.random.default_rng(7 + ft)
+        for Bm, blocks in ((37, 64), (513, 2), (3, 1)):
+            w = torch.randint(-(1 << 31), 1 << 31, (Bm, blocks * 2048), dtype=torch.int32,
+                              device=dev, generator=gen)
+            lens = rng.integers(0, blocks * 4096 + 1, Bm)
+            lens[rng.random(Bm) < 0.2] = 0
+            case(f"split ft={ft} {Bm} ragged members of up to {blocks} blocks", w,
+                 lens.tolist(), ft)
+            case(f"split ft={ft} {Bm} members of one length", w, blocks * 4096 - 3, ft)
+    n = MWORDS << 20
+    w = torch.randint(-(1 << 31), 1 << 31, (1, n // 2), dtype=torch.int32, device=dev,
+                      generator=gen)
+    case(f"split bf16 {n} uniform words (path A's size)", w, n, C.FLOAT_TYPE_BFLOAT16, False)
+    del w
+    torch.cuda.empty_cache()
+
+    log(f"  {BIG_BATCH} members: the ragged split, compress, decompress and joins")
+    big_batch_split(dev)
+    torch.cuda.empty_cache()
+    for ft in (C.FLOAT_TYPE_BFLOAT16, C.FLOAT_TYPE_FLOAT32):
+        big_batch_float(port, dev, ft)
+        torch.cuda.empty_cache()
+    big_batch_joins(port, dev)
+    torch.cuda.empty_cache()
+    log("  split: the same outputs as the plain version on every input; "
+        f"{BIG_BATCH} members round-trip and join")
+
+
 def float_batch_path(port, name, ft, words, err):
     """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
     through float_compress_batched / float_decompress_batched. Fills err
@@ -1181,9 +1345,11 @@ def api_paths(port, bat, words_d, data_f, lengths_f, err):
         padded[m, : lens_h[m]] = t.view(torch.int16)
     pairs_h = padded.view(torch.int32)
     del padded
+    # the lengths on the card, made once, as float_compress_batched passes them
+    lens_t = torch.tensor(lens_h, dtype=torch.int64, device=dev)
     err["split_ragged"] = require_exact(
         "split_ragged, path H shape",
-        zip(cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16),
+        zip(cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16, lengths_t=lens_t),
             cuda_float.split_words_batched_plain(pairs_h, lens_h, BF16)))
 
     # ---- path Hr: path F's members through api ----
@@ -1207,7 +1373,8 @@ def api_paths(port, bat, words_d, data_f, lengths_f, err):
         "G": (ts_g, outs_g, comp_g, sizes_g, launches_g),
         "H": (ts_h, lens_h, comp_h, sizes_h, launches_h),
         "Hr": (ts_r, comp_r, sizes_r, launches_r),
-        "split": (lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16),
+        "split": (lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16,
+                                                              lengths_t=lens_t),
                   lambda: cuda_float.split_words_batched_plain(pairs_h, lens_h, BF16)),
     }
 
@@ -1326,6 +1493,7 @@ def main():
     phase2_slice4(port, dev)
     phase2_slice5(port, dev)
     phase2_slice6(port, dev)
+    phase2_slice7(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 

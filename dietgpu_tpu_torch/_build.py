@@ -2,9 +2,10 @@
 
 Each ``csrc/<source>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
-root of the checkout, named by the hash of its source, then loaded with
-ctypes. All sources are compiled in parallel, one ``nvcc`` each. Nothing is
-built when the package is imported. A source may hold several kernels
+root of the checkout, named by the hash of its source and of the headers
+it may include (``csrc/*.cuh``), then loaded with ctypes. All sources are
+compiled in parallel, one ``nvcc`` each. Nothing is built when the package
+is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
 decode kernel; ``join.cu`` the f16/bf16 and f32 joins), each with its own C
 entry point. Every kernel takes a
@@ -44,7 +45,7 @@ _INT = ctypes.c_int
 _ENTRY = {
     "split": (
         "split", "dtt_split",
-        (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
+        (_VP, _LL, _LL, _LL, _VP, _LL, _INT, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
     "split_f32": (
         "split_f32", "dtt_split_f32",
@@ -69,6 +70,7 @@ KERNELS = tuple(_ENTRY)
 # kernel -> (source, C entry point, configuration) of the entry that reports
 # its resources (cudaFuncGetAttributes and the occupancy at its launch shape)
 _RESOURCES = {
+    "split": ("split", "dtt_split_resources", 0),
     "hist": ("hist", "dtt_hist_resources", 0),
     "encode": ("encode", "dtt_encode_resources", 0),
     "decode": ("decode", "dtt_decode_resources", 0),
@@ -98,6 +100,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -18,14 +18,15 @@
 // overflowing block (whose archive is flagged invalid) writes nothing out
 // of bounds.
 //
-// Batched: the grid is (NBm, B). Member m's archive is row m of a buffer
-// with a stride of `stride32` u32 (16-byte aligned), its payload starts at
-// u32 ds32[m] of the row (or at one offset for every member), its prefix is
-// row m of a (B, NBm) array, and its copies are clamped to the row's end,
-// so a member never writes into the next one. The vmapped single assembly
-// of the TPU path and its one-grid per_tile_seed variant write the same
-// bytes; this one launch does both's work. For a float batch the rows are
-// the members' containers.
+// Batched: one 1-D grid of NBm x B CTAs, CTA x copying row x (member
+// x / NBm's block x % NBm), so any B launches. Member m's archive is row m
+// of a buffer with a stride of `stride32` u32 (16-byte aligned), its
+// payload starts at u32 ds32[m] of the row (or at one offset for every
+// member), its prefix is row m of a (B, NBm) array, and its copies are
+// clamped to the row's end, so a member never writes into the next one.
+// The vmapped single assembly of the TPU path and its one-grid
+// per_tile_seed variant write the same bytes; this one launch does both's
+// work. For a float batch the rows are the members' containers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,8 +68,8 @@ assembly_kernel(const uint4* __restrict__ staged,
                 const int* __restrict__ prefix, long long nbm,
                 uint32_t* __restrict__ arcs, long long stride32, long long ds,
                 const long long* __restrict__ ds32) {
-  const long long m = blockIdx.y;
-  const long long row = m * nbm + blockIdx.x;
+  const long long row = blockIdx.x;
+  const long long m = row / nbm;
   const long long d = ds32 == nullptr ? ds : ds32[m];
   uint4* out = reinterpret_cast<uint4*>(arcs + m * stride32 + d);
   copy_block(staged + row * kRowVec, counts[row], (long long)prefix[row] / 8,
@@ -88,8 +89,7 @@ extern "C" int dtt_assemble(const void* staged, const void* counts,
                             void* arcs, long long stride32, long long ds,
                             const void* ds32, void* stream) {
   if (nbm > 0 && batch > 0) {
-    assembly_kernel<<<dim3((unsigned)nbm, (unsigned)batch), kThreads, 0,
-                      (cudaStream_t)stream>>>(
+    assembly_kernel<<<(unsigned)(nbm * batch), kThreads, 0, (cudaStream_t)stream>>>(
         static_cast<const uint4*>(staged), static_cast<const uint32_t*>(counts),
         static_cast<const int*>(prefix), nbm, static_cast<uint32_t*>(arcs),
         stride32, ds, static_cast<const long long*>(ds32));

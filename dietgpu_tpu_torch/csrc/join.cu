@@ -34,9 +34,10 @@
 //   reads as fast as a copy_ of the same bytes, and one wave of threads
 //   that each loaded 4 units a grid stride apart read slower.
 //
-// Batched: grid y is the member. Member m reads row m of each plane (at its
-// own row stride, so a plane may sit inside a larger buffer) and writes row
-// m of the output.
+// Batched: one 1-D grid, `per` CTAs a member (CTA x works on member
+// x / per), so any B launches; a member's CTAs stride over its units.
+// Member m reads row m of each plane (at its own row stride, so a plane may
+// sit inside a larger buffer) and writes row m of the output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,13 +82,14 @@ template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 join_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ nc_all,
             long long n4, int bf16, uint32_t* __restrict__ out_all,
-            long long exp_stride32, long long nc_stride32, long long out_stride32) {
-  const long long m = blockIdx.y;
+            long long exp_stride32, long long nc_stride32, long long out_stride32,
+            unsigned per) {
+  const long long m = blockIdx.x / per;
   const uint32_t* __restrict__ exp = exp_all + m * exp_stride32;
   const uint32_t* __restrict__ nc = nc_all + m * nc_stride32;
   uint32_t* __restrict__ out = out_all + m * out_stride32;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)per * kThreads;
+  const long long t = (long long)(blockIdx.x % per) * kThreads + threadIdx.x;
   long long first = 0;
   if (kVec) {
     const long long n16 = n4 / 4;
@@ -117,14 +119,16 @@ __global__ void __launch_bounds__(kThreads)
 join_f32_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict__ lo_all,
                 const uint32_t* __restrict__ hi_all, long long n4,
                 uint32_t* __restrict__ out_all, long long exp_stride32,
-                long long lo_stride32, long long hi_stride32, long long out_stride32) {
-  const long long m = blockIdx.y;
+                long long lo_stride32, long long hi_stride32, long long out_stride32,
+                unsigned per) {
+  const long long m = blockIdx.x / per;
   const uint32_t* __restrict__ exp = exp_all + m * exp_stride32;
   const uint32_t* __restrict__ lo = lo_all + m * lo_stride32;
   const uint32_t* __restrict__ hi = hi_all + m * hi_stride32;
   uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out_all + m * out_stride32);
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n4; j += stride) {
+  const long long stride = (long long)per * kThreads;
+  for (long long j = (long long)(blockIdx.x % per) * kThreads + threadIdx.x; j < n4;
+       j += stride) {
     uint32_t l0;
     uint32_t l1;
     if (kLo8) {
@@ -168,16 +172,18 @@ extern "C" int dtt_join(const void* exp, const void* nc, long long batch, long l
   if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
   const bool vec = aligned16(exp, exp_stride32) && aligned16(nc, nc_stride32) &&
                    aligned16(out, out_stride32);
-  const dim3 grid((unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch), (unsigned)batch);
+  const unsigned per = (unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch);
+  const long long grid = per * batch;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const auto* e = static_cast<const uint32_t*>(exp);
   const auto* c = static_cast<const uint32_t*>(nc);
   auto* o = static_cast<uint32_t*>(out);
   if (vec) {
-    join_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32);
+    join_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32, per);
   } else {
-    join_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32);
+    join_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32, per);
   }
   return (int)cudaGetLastError();
 }
@@ -193,19 +199,23 @@ extern "C" int dtt_join_f32(const void* exp, const void* lo, const void* hi,
                             long long hi_stride32, long long out_stride32, void* stream) {
   if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
   const bool lo8 = reinterpret_cast<uintptr_t>(lo) % 8 == 0 && lo_stride32 % 2 == 0;
-  // a unit a thread: a grid over every unit, not one wave
+  // a unit a thread: a grid over every unit, not one wave (a member's
+  // CTAs loop only past 2^31 - 1 CTAs in all)
   const long long blocks = (n4 + kThreads - 1) / kThreads;
-  const dim3 grid((unsigned)(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL), (unsigned)batch);
+  const long long cap = 0x7fffffffLL / batch;
+  const unsigned per = (unsigned)(blocks < cap ? blocks : cap);
+  const long long grid = per * batch;
+  if (per == 0) return (int)cudaErrorInvalidConfiguration;
   const auto* e = static_cast<const uint32_t*>(exp);
   const auto* l = static_cast<const uint32_t*>(lo);
   const auto* h = static_cast<const uint32_t*>(hi);
   auto* o = static_cast<uint32_t*>(out);
   if (lo8) {
-    join_f32_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
+    join_f32_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32, per);
   } else {
-    join_f32_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32);
+    join_f32_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32, per);
   }
   return (int)cudaGetLastError();
 }

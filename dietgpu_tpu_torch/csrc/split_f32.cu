@@ -28,7 +28,8 @@
 // and merged with one atomicXor per warp.
 //
 // Batched (the vmapped split_words_pallas_f32 of
-// float_compress_batched_pallas): grid y is the member. Member m reads row m
+// float_compress_batched_pallas): one 1-D grid, `per` CTAs a member (CTA x
+// works on member x / per), so any B launches. Member m reads row m
 // of the words, writes row m of the exponent plane, its low and high planes
 // into row m of the caller's buffer (the members' containers), each still
 // stopping at its archived length, and counts into histogram row m and
@@ -57,9 +58,9 @@ split_f32_kernel(const uint32_t* __restrict__ words_all, long long n_quad,
                  uint32_t* __restrict__ hi_all, unsigned* __restrict__ hist_all,
                  unsigned* __restrict__ cks_all,
                  long long in_stride32, long long exp_stride32,
-                 long long plane_stride32) {
+                 long long plane_stride32, unsigned per) {
   __shared__ unsigned sh[kWarps][256];
-  const long long m = blockIdx.y;
+  const long long m = blockIdx.x / per;
   const long long length = lengths == nullptr ? length_all : lengths[m];
   const uint4* __restrict__ words =
       reinterpret_cast<const uint4*>(words_all + m * in_stride32);
@@ -87,10 +88,10 @@ split_f32_kernel(const uint32_t* __restrict__ words_all, long long n_quad,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   uint32_t x = 0;
-  const long long stride = (long long)gridDim.x * kThreads;
+  const long long stride = (long long)per * kThreads;
   // the trip count is uniform across each warp (the loop runs over
   // block-aligned bases), as __match_any_sync requires
-  for (long long base = (long long)blockIdx.x * kThreads; base < n_quad;
+  for (long long base = (long long)(blockIdx.x % per) * kThreads; base < n_quad;
        base += stride) {
     const long long o = base + threadIdx.x;
     const bool in = o < n_quad;
@@ -151,13 +152,12 @@ int launch_split_f32(const void* words, long long batch, long long n_quad,
   const long long cap = (long long)sms * 8 / batch;  // one wave in all
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  split_f32_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, 0,
-                     (cudaStream_t)stream>>>(
+  split_f32_kernel<<<(unsigned)(blocks * batch), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(words), n_quad, length,
       static_cast<const long long*>(lengths), static_cast<uint32_t*>(exp_out),
       static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
       static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32,
-      exp_stride32, plane_stride32);
+      exp_stride32, plane_stride32, (unsigned)blocks);
   return (int)cudaGetLastError();
 }
 

@@ -159,7 +159,8 @@ def split_words_batched_cuda(pairs, length, float_type, with_checksum=False, nc_
                              lengths_t=None):
     """Launch ``csrc/split.cu``, one launch for all B rows; same contract as
     :func:`split_words_batched_plain`. Ragged lengths go to the kernel as
-    `lengths_t`, or as a device copy made here."""
+    `lengths_t`, or as a device copy made here; the kernel reads no word
+    past a member's length."""
     if pairs.dim() != 2:
         raise ValueError("split: a batch is (B, Lw/2) int32 word pairs")
     Lw = _check(pairs[0], 0, float_type)
@@ -177,6 +178,7 @@ def split_words_batched_cuda(pairs, length, float_type, with_checksum=False, nc_
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
         "split", pairs.data_ptr(), B, Lw // 8, n, layout.data_ptr(n_t),
+        sum((x + 7) // 8 for x in lengths),
         int(float_type == C.FLOAT_TYPE_BFLOAT16), exp32.data_ptr(), nc_out.data_ptr(),
         hist.data_ptr(), cks.data_ptr() if with_checksum else None,
         pairs.shape[1], Lw // 4, nc_out.stride(0),

@@ -11,10 +11,11 @@ words), B (128Mi f32 words) and C (2^28 raw bytes) of chip_smoke.py, with
 inputs made as chip_smoke.py makes them, prob_bits 10, no checksum, 20
 calls each: the CUDA-event ms per call, and the host's enqueue ms per call
 (until the call returns, before synchronising), where the glue between the
-kernels shows; and the hist, encode and decode kernels alone at
-chip_smoke.py's rows of paths A-F, split_f32 at path B's, the ragged
-split at path H's and the f32 join at path J's, called as the main paths
-call them. Two versions are
+kernels shows; and the split, hist, encode and decode kernels alone at
+chip_smoke.py's rows of paths A-F, split_f32 at path B's (also on
+uniformly random words), the ragged split at path H's (on normal and on
+uniformly random words) and the f32 join at path J's, called as the main
+paths call them. Two versions are
 compared only within one such run. Each child also counts, with
 torch.profiler over 10 compress calls, the CUDA
 runtime calls a compress makes (kernel launches, copies, stream
@@ -46,10 +47,10 @@ def encode_row(timed, data32, length, prob_bits, hist, totals):
 
 
 def kernel_rows(port, timed, bf16, f32, raw, arc_c):
-    """The hist, encode, decode, split_f32, ragged split and f32 join kernels
-    alone at chip_smoke.py's rows: A, B, C, J (the inputs above), the
-    batches D, E, F made as chip_smoke.py makes them and H's lengths, called
-    as the main paths call them."""
+    """The split, hist, encode, decode, split_f32, ragged split and f32 join
+    kernels alone at chip_smoke.py's rows: A, B, C, J (the inputs above),
+    the batches D, E, F made as chip_smoke.py makes them and H's lengths,
+    called as the main paths call them."""
     import numpy as np
     import torch
 
@@ -58,23 +59,37 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
 
     n, L = 128 << 20, 1 << 28
     out = {}
+    out["kernel split (A)"] = timed(lambda: cuda_float.split_words_batched_cuda(bf16[None], n, 2))
     exp32, _, hist, _ = cuda_float.split_words_batched_cuda(bf16[None], n, 2)
     out["kernel encode (A)"] = encode_row(timed, exp32, n, 10, hist, n)
     out["kernel split_f32 (B)"] = timed(
         lambda: cuda_float.split_words_f32_batched_cuda(f32[None], n))
+    uniform = torch.randint(-(1 << 31), 1 << 31, (1, n), dtype=torch.int32, device="cuda")
+    out["kernel split_f32 (B, uniform words)"] = timed(
+        lambda: cuda_float.split_words_f32_batched_cuda(uniform, n))
+    del uniform
     e32, lo, hi, _, _ = cuda_float.split_words_f32_batched_cuda(f32[None], n)
     out["kernel join_f32 (J)"] = timed(lambda: cuda_float.join_words_f32_cuda(e32, lo, hi))
     del exp32, e32, lo, hi
     # path H's ragged split: 64 members of 512Ki-2Mi words, the lengths on
-    # the card as float_compress_batched passes them
-    lens_h = np.random.default_rng(0).integers(1 << 19, (1 << 21) + 1, 64).tolist()
+    # the card as float_compress_batched passes them; normal words made as
+    # chip_smoke.py makes path H's, and uniformly random words (every
+    # exponent byte)
+    rng = np.random.default_rng(0)
+    lens_h = rng.integers(1 << 19, (1 << 21) + 1, 64).tolist()
     width = -(-max(lens_h) // 4096) * 4096
-    pairs_h = torch.randint(-(1 << 31), 1 << 31, (64, width // 2), dtype=torch.int32,
-                            device="cuda")
+    normal = torch.zeros((64, width), dtype=torch.int16, device="cuda")
+    for m, k in enumerate(lens_h):
+        x = rng.standard_normal(k).astype(np.float32)
+        normal[m, :k] = torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16)
+                                         .view(np.int16)).cuda()
     lens_t = torch.tensor(lens_h, dtype=torch.int64, device="cuda")
-    out["kernel split_ragged (H)"] = timed(
-        lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, 2, lengths_t=lens_t))
-    del pairs_h
+    for words, row in ((normal.view(torch.int32), "normal"),
+                       (torch.randint(-(1 << 31), 1 << 31, (64, width // 2), dtype=torch.int32,
+                                      device="cuda"), "uniform")):
+        out[f"kernel split_ragged (H, {row} words)"] = timed(
+            lambda: cuda_float.split_words_batched_cuda(words, lens_h, 2, lengths_t=lens_t))
+    del normal, words
     raw32 = raw.view(torch.int32)
     out["kernel hist (C)"] = timed(lambda: cuda_hist.histogram_u8_batched_cuda(raw32[None], [L]))
     out["kernel decode_raw (C)"] = timed(
@@ -88,6 +103,8 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     words_e = torch.from_numpy(x.view(np.int32)).cuda()
     words_d = (words_e >> 16).to(torch.int16).view(torch.int32)
     del x
+    out["kernel split_batched (D)"] = timed(
+        lambda: cuda_float.split_words_batched_cuda(words_d, Lm, 2))
     exp_d, _, hist_d, _ = cuda_float.split_words_batched_cuda(words_d, Lm, 2)
     out["kernel encode_batched (D)"] = encode_row(timed, exp_d, Lm, 10, hist_d, Lm)
     del exp_d
