@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # the full check, about two minutes
+    python3 chip_smoke.py            # the full check, about two and a half minutes
 
 Phases; any failure raises, so the script exits non-zero and prints no
 result line:
@@ -87,6 +87,25 @@ result line:
                split and joined back (join_words_packed,
                join_words_packed_f32) at 128Mi words, exact against the
                input and the plain join;
+   path K   -- the compressed collectives and the shard codec
+               (``dietgpu_tpu_torch.parallel``) at world size 1 over NCCL
+               (one card; NCCL puts no two ranks of a communicator on one
+               device), a file rendezvous in a temporary directory, on A's
+               bf16 words (all-gather at the default budget and at 1024
+               bytes, which goes raw; the two-phase all-gather; all-to-all
+               of one (1, 128Mi) row; reduce-scatter and all-reduce of V =
+               128Mi; the default ppermute, a self-edge), B's f32 words
+               (all-gather at 7/8 of raw) and C's bytes (shard_compress /
+               shard_decompress, shared_stats False and True): each call
+               the identity, its flag as expected, each kernel launched
+               exactly as many times as the call runs it, every archive it
+               compresses to send equal to the plain pipeline's on the
+               card; a tensor on the other backend's device refused; and
+               at 4096 and 5000 words the same calls on the card (NCCL) and
+               on CPU copies (a gloo group of the same rank) with equal
+               outputs, flags, budgets and sent archives. Each call's
+               median ms of 10 is timed beside the raw collective's on the
+               same tensor and group;
 4. timing   -- CUDA events: compress and decompress GB/s of each path (for
                D-F also the same batch as B single-tensor calls; G and H
                beside D and the ragged batch's bytes), the joins' GB/s,
@@ -103,7 +122,10 @@ at paths D-F's shapes, the split at path H's ragged lengths
 (split_ragged, timed with the lengths on the card, as the compress path
 passes them), and the joins at path J's (join, join_f32).
 
-Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
+Output: progress lines, then a ``{"collectives": {...}}`` JSON line (path
+K's rows, labelled world size 1: at one rank each exchange is a copy on the
+card, so the times are the codec's cost, not a wire saving), a
+``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -1399,6 +1421,242 @@ def batch_inputs(dev):
     return words_d, words_e, data, lengths
 
 
+COLL_SMALL = (4096, 5000)  # path K's cross-check against the gloo CPU route, words
+COLL_ITERS = 10  # timed calls per collective (the median is kept)
+_HALF = {"split": 1, "encode": 1, "assembly": 1, "decode": 1}
+_RAW = {"hist": 1, "encode": 1, "assembly": 1, "decode_raw": 1}
+# path K's calls: name -> (function of dietgpu_tpu_torch.parallel, input,
+# keyword arguments, the launches of one call, the raw collective timed
+# beside it). Inputs: A's bf16 words, a (1, n) row of them for the
+# all-to-all, B's f32 words, C's bytes. A float budget is a share of the
+# raw bytes: B's words compress to 0.837 of raw, past the default 0.75.
+COLL_CALLS = {
+    "all_gather": ("compressed_all_gather", "bf16", {}, _HALF, "all_gather"),
+    "all_gather_raw": ("compressed_all_gather", "bf16", {"budget_bytes": 1024},
+                       {"split": 1, "encode": 1, "assembly": 1}, "all_gather"),
+    "all_gather_auto": ("compressed_all_gather_auto", "bf16", {}, _HALF, "all_gather"),
+    "all_to_all": ("compressed_all_to_all", "bf16_row", {}, _HALF, "all_to_all"),
+    "reduce_scatter": ("compressed_reduce_scatter", "bf16", {}, _HALF, "reduce_scatter"),
+    "all_reduce": ("compressed_all_reduce", "bf16", {}, {k: 2 for k in _HALF}, "all_reduce"),
+    "ppermute": ("compressed_ppermute", "bf16", {}, _HALF, "copy_"),
+    "all_gather_f32": ("compressed_all_gather", "f32", {"budget_bytes": 0.875},
+                       {"split_f32": 1, "encode": 1, "assembly": 1, "decode_f32": 1},
+                       "all_gather"),
+    "shard": ("shard", "bytes", {"shared_stats": False}, _RAW, None),
+    "shard_shared_stats": ("shard", "bytes", {"shared_stats": True}, _RAW, None),
+}
+
+
+def coll_call(parallel, name, x, group, sent=None):
+    """One call of path K: (output, flag). The shard codec's call is
+    shard_compress then shard_decompress; its flag is the decode's ok, and
+    its (archive, size) goes to `sent` as a batch of one."""
+    fn, _, kw, _, _ = COLL_CALLS[name]
+    if isinstance(kw.get("budget_bytes"), float):
+        kw = {**kw, "budget_bytes": -(-int(x.nbytes * kw["budget_bytes"]) // 16) * 16}
+    if fn == "shard":
+        arc, size = parallel.shard_compress(x, x.numel(), group, **kw)
+        if sent is not None:
+            sent.append((arc[None], size[None]))
+        out, _, ok = parallel.shard_decompress(arc, x.numel(), x.numel(), group)
+        return out, bool(ok)
+    return getattr(parallel, fn)(x, group=group, **kw)
+
+
+def coll_input(kind, words_a, words_b, data_c):
+    return {"bf16": words_a, "bf16_row": words_a[None], "f32": words_b, "bytes": data_c}[kind]
+
+
+def median_ms(fn, iters, warmup=2):
+    """Median of `iters` calls' CUDA-event times, after `warmup` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def collectives_phase(port, words_a, words_b, data_c):
+    """Path K: the compressed collectives and the shard codec at world size
+    1 over NCCL on the card (one card; NCCL puts no two ranks of one
+    communicator on a device), on A's bf16 words, B's f32 words and C's
+    bytes. Each call must give back its input bit for bit, launch exactly
+    its kernels, and send the plain pipeline's archive; at COLL_SMALL words
+    the same calls on CPU copies through a gloo group of the same rank must
+    give the card's outputs, flags and sent archives. Returns the
+    `collectives` rows: each call's median ms beside the raw collective's
+    on the same tensor and group, with its bytes."""
+    import os
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch import parallel
+    from dietgpu_tpu_torch.ans import cuda_encode
+    from dietgpu_tpu_torch.floatcodec import codec
+    from dietgpu_tpu_torch.parallel import collectives
+
+    # the world is this one process: keep both backends on the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv")
+    orig = {k: getattr(collectives, k) for k in ("_compress", "_all_gather", "_all_to_all",
+                                                 "_permute")}
+    require(parallel.initialize_process_group(
+        init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0,
+        timeout=timedelta(seconds=120)), "the NCCL process group did not start")
+    try:
+        require(dist.get_backend() == "nccl", f"default backend {dist.get_backend()}")
+        log(f"  torch {torch.__version__}: all-gathers through "
+            f"dist.{collectives._ALL_GATHER.__name__}, all-to-alls through "
+            "dist.all_to_all_single, votes through dist.all_reduce")
+        gloo = dist.new_group(backend="gloo")
+        sent, wire = [], [0]
+
+        def compress(x, prob_bits):
+            arcs, sizes = orig["_compress"](x, prob_bits)
+            sent.append((arcs, sizes))
+            return arcs, sizes
+
+        def counted(name, arg):
+            def fn(*a):
+                wire[0] += a[arg].numel() * a[arg].element_size()
+                return orig[name](*a)
+            return fn
+
+        # record what each call compresses to send, and the bytes it hands
+        # to the exchange
+        collectives._compress = compress
+        collectives._all_gather = counted("_all_gather", 0)
+        collectives._all_to_all = counted("_all_to_all", 0)
+        collectives._permute = counted("_permute", 0)
+
+        def sent_archives(name, x, group):
+            """(output, flag, [(archive bytes [0, size), size)]) of one call."""
+            sent.clear()
+            out, flag = coll_call(parallel, name, x, group, sent)
+            arcs = [(a[: (s & 0x7FFFFFFF) // 4].cpu(), s) for arcs, sizes in sent
+                    for a, s in zip(arcs, sizes.tolist())]
+            return out, flag, arcs
+
+        def same_bits(a, b):
+            a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)
+            return a.shape == b.shape and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+        # a tensor on the other backend's device is refused, never moved
+        for x, group in ((words_a[:4096].cpu(), None), (words_a[:4096], gloo)):
+            try:
+                parallel.compressed_all_gather(x, group=group)
+            except ValueError:
+                continue
+            raise AssertionError("a tensor on the wrong device for its group was taken")
+        log("  a CPU tensor on the NCCL group and a card tensor on the gloo group raise")
+
+        # the same calls at small sizes: the card over NCCL, the CPU over gloo
+        rng = np.random.default_rng(0)
+        for n in COLL_SMALL:
+            xs = rng.standard_normal(n).astype(np.float32)
+            small = (torch.from_numpy((xs.view(np.int32) >> 16).astype(np.int16)).view(torch.bfloat16),
+                     torch.from_numpy(xs), torch.from_numpy(np.minimum(
+                         rng.exponential(30, C.round_up(n, 4096)), 255).astype(np.uint8)))
+            for name, (_, kind, _, _, _) in COLL_CALLS.items():
+                x = coll_input(kind, *small)
+                card_out, card_flag, card_sent = sent_archives(name, x.cuda(), None)
+                cpu_out, cpu_flag, cpu_sent = sent_archives(name, x, gloo)
+                require(card_flag == cpu_flag, f"path K {name} n={n}: flags {card_flag}, {cpu_flag}")
+                require(same_bits(card_out.cpu(), cpu_out), f"path K {name} n={n}: outputs differ")
+                require(same_bits(cpu_out, x), f"path K {name} n={n}: not the identity")
+                require(len(card_sent) == len(cpu_sent) and all(
+                    s1 == s2 and torch.equal(a1, a2)
+                    for (a1, s1), (a2, s2) in zip(card_sent, cpu_sent)),
+                    f"path K {name} n={n}: sent archives differ")
+        log(f"  at {COLL_SMALL} words every call on the card (NCCL) equals the CPU route "
+            "(gloo): outputs, flags, budgets, sent archives; each the identity")
+
+        # full size: A's, B's and C's inputs
+        n, L = words_a.numel(), data_c.numel()
+        plain = {
+            "bf16": codec.float_compress_padded_plain(words_a.view(torch.int16), n,
+                                                      C.FLOAT_TYPE_BFLOAT16, 10, False),
+            "f32": codec.float_compress_padded_plain(words_b, n, C.FLOAT_TYPE_FLOAT32, 10, False),
+            "bytes": cuda_encode.ans_encode_padded_plain(data_c, L, 10, False),
+        }
+        plain["bf16_row"] = plain["bf16"]
+        rows = []
+        for name, (fn_name, kind, kw, want, raw_op) in COLL_CALLS.items():
+            x = coll_input(kind, words_a, words_b, data_c)
+            torch.cuda.synchronize()
+            port.reset_kernel_launches()
+            wire[0] = 0
+            out, flag, arcs = sent_archives(name, x, None)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in port.kernel_launches().items() if v}
+            require(launches == want, f"path K {name}: launches {launches}, expected {want}")
+            require(same_bits(out, x), f"path K {name}: the output is not the input")
+            if name == "all_gather_raw":
+                require(flag is False, "path K: a 1024-byte budget did not go raw")
+            else:
+                require(flag is True or (name == "all_gather_auto" and flag > 0),
+                        f"path K {name}: flag {flag}")
+            parc, psize = plain[kind]
+            psize = int(psize)
+            for a, s in arcs:
+                require(s == psize and torch.equal(a, parc[: psize // 4].cpu()),
+                        f"path K {name}: the sent archive differs from the plain pipeline's")
+            sent_bytes = wire[0]
+            log(f"  {name}: identity, flag {flag}, launches {launches}, {len(arcs)} archive(s) "
+                f"compressed to send equal to the plain pipeline's, {sent_bytes} bytes to the "
+                "exchange")
+            del out, arcs
+            sent.clear()
+            ms = median_ms(lambda: coll_call(parallel, name, x, None), COLL_ITERS)
+            raw_ms = None
+            if raw_op == "all_gather":
+                raw_ms = median_ms(lambda: orig["_all_gather"](x, None), COLL_ITERS)
+            elif raw_op == "all_to_all":
+                raw_ms = median_ms(lambda: orig["_all_to_all"](x, None), COLL_ITERS)
+            elif raw_op == "reduce_scatter":
+                rs = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+                y = torch.empty_like(x)
+                raw_ms = median_ms(lambda: rs(y, x), COLL_ITERS)
+            elif raw_op == "all_reduce":
+                y = x.clone()
+                raw_ms = median_ms(lambda: dist.all_reduce(y), COLL_ITERS)
+            elif raw_op == "copy_":
+                y = torch.empty_like(x)
+                raw_ms = median_ms(lambda: y.copy_(x), COLL_ITERS)
+            raw_bytes = x.numel() * x.element_size()
+            rows.append({
+                "name": name, "call": fn_name, "numel": x.numel(), "dtype": str(x.dtype),
+                "ms": ms, "raw_ms": raw_ms, "raw_op": raw_op, "flag": flag,
+                "sent_bytes": sent_bytes, "raw_bytes": raw_bytes, "archive_bytes": psize,
+                "ratio": psize / raw_bytes, "launches": launches,
+            })
+            raw = "" if raw_ms is None else f", raw {raw_op} {raw_ms:.4f} ms"
+            log(f"  {name}: {ms:.4f} ms{raw}")
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in orig.items():
+            setattr(collectives, k, v)
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -1701,6 +1959,13 @@ def main():
     err["decode_raw"] = e6
     torch.cuda.empty_cache()
 
+    # ---- 3. path K: the compressed collectives and the shard codec ----
+    log("# phase 3: path K, the collectives and the shard codec at world size 1 over NCCL, "
+        "on A's, B's and C's inputs")
+    coll_rows = collectives_phase(port, inputs[0].view(torch.bfloat16),
+                                  inputs_b[0].view(torch.float32), datas[0])
+    torch.cuda.empty_cache()
+
     # ---- 3. paths D, E, F: the batched paths ----
     words_d, words_e, data_f, lengths_f = batch_inputs(dev)
     log(f"# phase 3: path D, bf16 batch of {BATCH} x {MEMBER_WORDS} words, prob_bits 10")
@@ -1942,6 +2207,11 @@ def main():
         if m == "jax" or m.startswith(("jax.", "dietgpu_tpu.")) or m == "dietgpu_tpu":
             raise AssertionError(f"{m} was imported")
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"collectives": {
+        "world_size": 1, "backend": "nccl", "card": card,
+        "measures": "world size 1: each exchange is a copy on the card, so ms is the codec's "
+                    "cost beside the raw call's, not a wire saving",
+        "rows": coll_rows}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ package's. The ``*_batched`` entry points take B members as rows of one
 tensor and launch each kernel once for the whole batch. ``api`` is the
 ten-op batch API over them and ``torch_api`` the same ops with the
 reference's in-place tensor contract; ``join_words_packed`` and
-``join_words_packed_f32`` turn packed float planes back into words.
+``join_words_packed_f32`` turn packed float planes back into words. The
+shard codec and the compressed collectives on torch.distributed are in
+``dietgpu_tpu_torch.parallel``.
 """
 
 from . import api, torch_api

@@ -9,14 +9,20 @@ D (128 bf16 members of 512Ki words), E (the same in f32) and F (64 raw
 members of 1-4 MiB, ragged) as chip_smoke.py makes them; and the API
 paths: G (D's members as 128 tensors through ``torch_api``, decompressed
 in place) and H (64 ragged bf16 tensors of 512Ki-2Mi words through
-``api``); E's split alone, into separate planes; and the joins of path J
-(A's and B's split planes back into words). For each call it reports:
+``api``); E's split alone, into separate planes; the joins of path J
+(A's and B's split planes back into words); and path K, the collectives
+of ``dietgpu_tpu_torch.parallel`` at world size 1 over NCCL on A's words
+(all-gather, the same at a 1024-byte budget, which goes raw, two-phase
+all-gather, all-to-all, reduce-scatter, all-reduce, ppermute), on B's
+(all-gather at 7/8 of raw) and C's bytes (shard_compress with and without
+shared stats), and the budget vote alone. For each call it reports:
 
 - wall: CUDA-event time of the call, synchronised, averaged;
 - enqueue: host time until the call returns, before synchronising;
 - device busy: the sum of kernel times that torch.profiler records over
   the same calls, and the idle share 1 - busy / wall;
-- the operations that take the most device time, the number of kernels
+- the operations that take the most device time, those that take the
+  most host time (self time, under the profiler), the number of kernels
   (device events, copies included) and of top-level torch ops launched per
   call.
 
@@ -142,6 +148,36 @@ def main():
         "J join": lambda: port.join_words_packed(*planes, bf16),
         "J join_f32": lambda: port.join_words_packed_f32(*planes_f32),
     }
+    # path K: a world-1 NCCL group (one card; NCCL puts no two ranks of a
+    # communicator on one device)
+    import os
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    from dietgpu_tpu_torch import parallel
+    from dietgpu_tpu_torch.parallel import collectives
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rdv = tempfile.mkdtemp(prefix="profile_port_rdv")
+    parallel.initialize_process_group(init_method=f"file://{rdv}/rendezvous", world_size=1,
+                                      rank=0, timeout=timedelta(seconds=120))
+    xk, xk32 = words.view(torch.bfloat16), words_f32.view(torch.float32)
+    f32_budget = C.round_up(int(xk32.nbytes * 0.875), 16)
+    fits = torch.ones(1, dtype=torch.bool, device="cuda")
+    calls.update({
+        "K all_gather": lambda: parallel.compressed_all_gather(xk),
+        "K all_gather raw": lambda: parallel.compressed_all_gather(xk, budget_bytes=1024),
+        "K all_gather_auto": lambda: parallel.compressed_all_gather_auto(xk),
+        "K all_to_all": lambda: parallel.compressed_all_to_all(xk[None]),
+        "K reduce_scatter": lambda: parallel.compressed_reduce_scatter(xk),
+        "K all_reduce": lambda: parallel.compressed_all_reduce(xk),
+        "K ppermute": lambda: parallel.compressed_ppermute(xk),
+        "K f32 all_gather": lambda: parallel.compressed_all_gather(xk32, budget_bytes=f32_budget),
+        "K shard_compress": lambda: parallel.shard_compress(data, L),
+        "K shard_compress shared": lambda: parallel.shard_compress(data, L, shared_stats=True),
+        "K vote": lambda: collectives._vote(fits, None),
+    })
     report = {"card": card, "n_words": n}
     for name, fn in calls.items():
         for _ in range(3):
@@ -176,6 +212,8 @@ def main():
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / ITERS
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        host = sorted(((a.key, a.self_cpu_time_total / 1e3 / ITERS) for a in prof.key_averages()),
+                      key=lambda kv: -kv[1])[:6]
         report[name] = {
             "wall_ms": wall_ms,
             "enqueue_ms": enqueue * 1e3 / ITERS,
@@ -184,6 +222,7 @@ def main():
             "kernels_per_call": len(kernels) / ITERS,
             "torch_ops_per_call": len(torch_ops) / ITERS,
             "top_device_ms": dict(top),
+            "top_host_self_ms": dict(host),
         }
         print(f"# {name}: wall {wall_ms:.4f} ms, host enqueue "
               f"{enqueue * 1e3 / ITERS:.4f} ms, device busy {busy_ms:.4f} ms, "
@@ -192,6 +231,10 @@ def main():
               f"torch ops per call ({card})")
         for k, v in top:
             print(f"    {v:9.4f} ms  {k[:90]}")
+        for k, v in host:
+            print(f"    {v:9.4f} ms host (self)  {k[:80]}")
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(rdv, ignore_errors=True)
     # normalize_probs on a whole batch of histograms at the widest table:
     # its extra device memory and time
     from dietgpu_tpu_torch.ans import stats
