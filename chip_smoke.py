@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # the full check, about two and a half minutes
+    python3 chip_smoke.py            # the full check, about three and a half minutes
 
 Phases; any failure raises, so the script exits non-zero and prints no
 result line:
@@ -111,7 +111,31 @@ result line:
                beside D and the ragged batch's bytes), the joins' GB/s,
                each kernel's ms beside its bound and its plain version's
                ms (and, for the histogram, torch.bincount's), and a
-               measured copy_ of path A's bytes.
+               measured copy_ of path A's bytes;
+5. path L   -- a compressed checkpoint of a GPT-2 XL state dict (the
+               gpt2-xl configuration of the public GPT-2 release: 48
+               layers, width 1600, vocabulary 50257, context 1024; 582
+               entries, bf16 matrices and embeddings drawn as GPT-2
+               initialises them from a seeded generator on the card, f32
+               LayerNorm parameters and biases, an int64 step and a bool
+               1024 x 1024 mask; 3.1 GB) through
+               ``checkpoint.save_arrays`` / ``load_arrays`` on an
+               io.BytesIO, prob_bits 10, checksum on: every tensor back bit
+               for bit, one batched decode a group, each entry's archive
+               equal to its single-tensor kernel archive, the 40 smallest
+               entries' archives equal through device="cpu", a file of the
+               first 4 layers on disk equal to the BytesIO bytes, f16,
+               bf16 and f32 NaN payloads back bit for bit; then the
+               file CLI in subprocesses on the card (compress --float bf16,
+               info, decompress of path A's words: path A's archive, the
+               words back). Save and load are timed (host medians of 3
+               calls) beside torch.save / torch.load of the same state
+               dict into a BytesIO;
+   stages   -- one path A compress and decompress under
+               ``profiling.profiler_start`` / ``profiler_stop``: every
+               stage range of the path is in the trace once, and the
+               split, encode, assembly and decode kernels each launch
+               inside their own stage.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; a row's `launches` is its kernel's count from the row's
@@ -125,9 +149,14 @@ passes them), and the joins at path J's (join, join_f32).
 Output: progress lines, then a ``{"collectives": {...}}`` JSON line (path
 K's rows, labelled world size 1: at one rank each exchange is a copy on the
 card, so the times are the codec's cost, not a wire saving), a
-``{"kernels": [...]}`` JSON line, the card's
+``{"checkpoint": {...}}`` line (path L: raw and file bytes, ratio, groups,
+save and load ms and GB/s beside torch.save's and torch.load's, the
+launches of one save and load, the CLI's seconds), a ``{"stages": {...}}``
+line (path A's stages: host ms, self and inclusive, and the device ms of
+the kernels launched inside each), a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+``{"ok": true, "device": {...}}``. It imports nothing of JAX, nor
+ml_dtypes.
 """
 
 import itertools
@@ -241,6 +270,8 @@ PATH_KERNELS = {
     "H": ("split", "encode", "assembly", "decode"),
     "Hr": ("hist", "encode", "assembly", "decode_raw"),
     "J": ("split", "join", "split_f32", "join_f32"),
+    "L": ("split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
+          "decode_raw"),
 }
 # paths whose calls must launch each kernel once
 BATCHED_PATHS = ("D", "E", "F", "G", "H", "Hr", "J")
@@ -1657,6 +1688,329 @@ def collectives_phase(port, words_a, words_b, data_c):
     return rows
 
 
+# ---- path L: a compressed GPT-2 XL checkpoint; path A's stages ----
+# the gpt2-xl configuration of the public GPT-2 release (Radford et al.
+# 2019, Table 2, 1542M parameters); 25 heads, which set no parameter shape
+GPT2_XL = {"layers": 48, "width": 1600, "vocab": 50257, "ctx": 1024}
+CKPT_CALLS = 3  # timed calls of save, load, torch.save and torch.load (median kept)
+CKPT_CPU_ENTRIES = 40  # the smallest entries, saved again through device="cpu"
+CKPT_DISK_LAYERS = 4  # the layers written to a file in a temporary directory
+# path A's stage ranges, and the stage each of its kernels must launch in
+A_STAGES = ("float.split", "float.stats", "float.ans_encode", "ans.encode_kernel",
+            "ans.sections", "ans.assembly", "float.fused_decode_join")
+STAGE_OF_KERNEL = {"split_kernel": "float.split", "encode_kernel": "ans.encode_kernel",
+                   "assembly_kernel": "ans.assembly", "decode_kernel": "float.fused_decode_join"}
+
+
+def gpt2_state_dict(dev, layers, width, vocab, ctx, seed=0):
+    """GPT-2's parameters under the Hugging Face names, drawn on `dev` from
+    a seeded generator as GPT-2 initialises them: matrices and embeddings
+    normal with std 0.02, the residual projections 0.02 / sqrt(2 layers),
+    LayerNorm weights one, LayerNorm and linear biases zero. Matrices and
+    embeddings in bf16, LayerNorm parameters and biases in f32, as mixed
+    precision keeps them; an int64 step and the bool causal mask."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(rows, cols, std=0.02):
+        return (torch.randn((rows, cols), generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    def f32(n, value):
+        return torch.full((n,), value, dtype=torch.float32, device=dev)
+
+    proj = 0.02 / math.sqrt(2 * layers)
+    sd = {"transformer.wte.weight": normal(vocab, width),
+          "transformer.wpe.weight": normal(ctx, width)}
+    for i in range(layers):
+        p = f"transformer.h.{i}."
+        sd.update({
+            p + "ln_1.weight": f32(width, 1.0), p + "ln_1.bias": f32(width, 0.0),
+            p + "attn.c_attn.weight": normal(width, 3 * width),
+            p + "attn.c_attn.bias": f32(3 * width, 0.0),
+            p + "attn.c_proj.weight": normal(width, width, proj),
+            p + "attn.c_proj.bias": f32(width, 0.0),
+            p + "ln_2.weight": f32(width, 1.0), p + "ln_2.bias": f32(width, 0.0),
+            p + "mlp.c_fc.weight": normal(width, 4 * width),
+            p + "mlp.c_fc.bias": f32(4 * width, 0.0),
+            p + "mlp.c_proj.weight": normal(4 * width, width, proj),
+            p + "mlp.c_proj.bias": f32(width, 0.0),
+        })
+    sd["transformer.ln_f.weight"] = f32(width, 1.0)
+    sd["transformer.ln_f.bias"] = f32(width, 0.0)
+    sd["step"] = torch.tensor(1000, dtype=torch.int64, device=dev)
+    sd["attn_mask"] = torch.ones((ctx, ctx), dtype=torch.bool, device=dev).tril()
+    return sd
+
+
+def checkpoint_entries(blob):
+    """(name, kind, dtype code, shape, archive bytes) of each entry of a
+    checkpoint file's bytes, in order (the container layout of
+    ``dietgpu_tpu_torch.checkpoint``)."""
+    import struct
+
+    view = memoryview(blob)
+    magic, _, n, _ = struct.unpack_from("<IIII", view, 0)
+    require(magic == 0xD1E77D17, f"not a checkpoint (magic 0x{magic:08x})")
+    off, out = 16, []
+    for _ in range(n):
+        (nl,) = struct.unpack_from("<I", view, off)
+        name = bytes(view[off + 4 : off + 4 + nl]).decode()
+        off += 4 + nl
+        kind, code, ndim = struct.unpack_from("<BBH", view, off)
+        shape = struct.unpack_from(f"<{ndim}Q", view, off + 4)
+        (al,) = struct.unpack_from("<Q", view, off + 4 + 8 * ndim)
+        off += 12 + 8 * ndim
+        out.append((name, kind, code, shape, view[off : off + al]))
+        off += al
+    require(off == len(blob), "bytes past the checkpoint's last entry")
+    return out
+
+
+def same_tensor(a, b):
+    """Equal dtype, shape and bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        word = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(word), b.view(word)
+    return torch.equal(a, b)
+
+
+def single_archive(port, t):
+    """Tensor t's archive through the single-tensor kernel path with the
+    checkpoint's settings (prob_bits 10, checksum), as host bytes: the
+    float codec for f16/bf16/f32, else raw ANS of its bytes."""
+    import numpy as np
+    import torch
+
+    if t.dtype in (torch.float16, torch.bfloat16, torch.float32):
+        return port.float_compress(t, 10, True).view(torch.uint8).cpu().numpy()
+    data = t.reshape(-1).view(torch.uint8)
+    n = data.numel()
+    padded = torch.zeros(-(-max(n, 1) // 4096) * 4096, dtype=torch.uint8, device=t.device)
+    padded[:n] = data
+    arc, size = port.ans_encode_padded(padded, n, 10, True)
+    return np.asarray(arc.view(torch.uint8)[: int(size)].cpu().numpy())
+
+
+def median_s(fn, calls=CKPT_CALLS):
+    """Median host seconds of `calls` synchronised calls (a first call
+    warms up)."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def checkpoint_path(port, dev, card, words_a, arc_a, size_a):
+    """Path L: a GPT-2 XL state dict through ``checkpoint.save_arrays`` /
+    ``load_arrays`` on the card (an io.BytesIO, prob_bits 10, checksum
+    on). Checks that the tensors come back bit for bit, that each entry's
+    archive in the file equals its single-tensor kernel archive, that the
+    smallest entries give the same archives through device="cpu", that a
+    file on disk equals the BytesIO bytes, and that the CLI, in
+    subprocesses on the card, gives path A's archive and words back.
+    Returns the `checkpoint` line's numbers."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import checkpoint
+
+    sd = gpt2_state_dict(dev, **GPT2_XL)
+    raw = sum(t.numel() * t.element_size() for t in sd.values())
+    log(f"# phase 5: path L, a GPT-2 XL checkpoint: {len(sd)} entries, {raw} bytes, "
+        f"prob_bits 10, checksum on")
+
+    def save_load():
+        buf = io.BytesIO()
+        checkpoint.save_arrays(buf, sd)
+        buf.seek(0)
+        return buf.getvalue(), checkpoint.load_arrays(buf)
+
+    (blob, back), launches = drive(port, "L", save_load)
+    groups = launches["encode"]
+    require(launches["decode"] + launches["decode_f32"] + launches["decode_raw"] == groups,
+            "path L: the load did not decode each group once")
+    require(list(back) == list(sd), "path L: the entries came back in another order")
+    require(all(t.is_cuda for t in back.values()), "path L: a tensor was loaded off the card")
+    require(all(same_tensor(back[k], v) for k, v in sd.items()),
+            "path L: a loaded tensor differs from the original")
+    del back
+    log(f"  {len(sd)} tensors back bit for bit; {groups} groups; file {len(blob)} bytes, "
+        f"ratio {len(blob) / raw:.6f}")
+
+    entries = checkpoint_entries(blob)
+    require([e[0] for e in entries] == list(sd), "path L: the file's entries differ")
+    for name, _, _, shape, arc in entries:
+        require(tuple(sd[name].shape) == shape, f"path L: {name}'s shape differs")
+        require(np.array_equal(np.frombuffer(arc, np.uint8), single_archive(port, sd[name])),
+                f"path L: {name}'s archive differs from its single-tensor archive")
+    log("  each entry's archive equals its single-tensor kernel archive")
+
+    small = sorted(sd, key=lambda k: sd[k].numel() * sd[k].element_size())[:CKPT_CPU_ENTRIES]
+    buf = io.BytesIO()
+    checkpoint.save_arrays(buf, {k: sd[k].cpu() for k in small}, device="cpu")
+    on_card = {e[0]: bytes(e[4]) for e in entries}
+    require(all(bytes(arc) == on_card[name] for name, *_, arc in checkpoint_entries(
+        buf.getvalue())), "path L: the CPU route's archives differ from the card's")
+    log(f"  the {CKPT_CPU_ENTRIES} smallest entries give the same archives through "
+        f"device='cpu'")
+
+    layers = {k: v for k, v in sd.items()
+              if k.startswith(tuple(f"transformer.h.{i}." for i in range(CKPT_DISK_LAYERS)))}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt2-xl.dgt")
+        checkpoint.save_arrays(path, layers)
+        buf = io.BytesIO()
+        checkpoint.save_arrays(buf, layers)
+        with open(path, "rb") as f:
+            require(f.read() == buf.getvalue(), "path L: the file differs from the BytesIO bytes")
+        back = checkpoint.load_arrays(path)
+        require(all(same_tensor(back[k], v) for k, v in layers.items()),
+                "path L: the file read back differs")
+    del back, buf
+    log(f"  a file of the first {CKPT_DISK_LAYERS} layers ({len(layers)} entries) equals the "
+        "BytesIO bytes and reads back")
+
+    # NaN payloads a float copy on the card would rewrite as 0x7FFF
+    nans = {}
+    for dtype, word, bits in ((torch.float16, torch.int16, (0x7E01, -0x0200, 0x7C01)),
+                              (torch.bfloat16, torch.int16, (0x7FC1, -0x0040, 0x7F81)),
+                              (torch.float32, torch.int32, (0x7FC00001, -0x00400000))):
+        w = sd["transformer.ln_f.weight"].to(dtype).view(word).clone()
+        w[: len(bits)] = torch.tensor(bits, dtype=word, device=dev)
+        nans[str(dtype)] = w.view(dtype)
+    buf = io.BytesIO()
+    checkpoint.save_arrays(buf, nans)
+    buf.seek(0)
+    back = checkpoint.load_arrays(buf)
+    require(all(same_tensor(back[k], v) for k, v in nans.items()),
+            "path L: a NaN payload did not come back bit for bit")
+    log("  f16, bf16 and f32 NaN payloads come back bit for bit")
+
+    save_s = median_s(lambda: checkpoint.save_arrays(io.BytesIO(), sd))
+    load_s = median_s(lambda: checkpoint.load_arrays(io.BytesIO(blob)))
+    tbuf = io.BytesIO()
+    torch.save(sd, tbuf)
+    tblob = tbuf.getvalue()
+    del tbuf
+    tsave_s = median_s(lambda: torch.save(sd, io.BytesIO()))
+    tload_s = median_s(lambda: torch.load(io.BytesIO(tblob), weights_only=True))
+    torch.cuda.empty_cache()
+    for what, s in (("save_arrays", save_s), ("load_arrays", load_s),
+                    ("torch.save", tsave_s), ("torch.load", tload_s)):
+        log(f"  {what:12s} {s * 1e3:10.2f} ms  {raw / s / 1e9:8.3f} GB/s of raw bytes "
+            f"(median of {CKPT_CALLS}; {card})")
+
+    cli_s = cli_phase(words_a, arc_a, size_a)
+    return {
+        "model": "gpt2-xl (Radford et al. 2019, Table 2): 48 layers, width 1600, "
+                 "vocabulary 50257, context 1024; weights drawn from seed 0",
+        "entries": len(sd), "groups": groups, "raw_bytes": raw, "file_bytes": len(blob),
+        "ratio": len(blob) / raw, "torch_file_bytes": len(tblob),
+        "save_ms": save_s * 1e3, "load_ms": load_s * 1e3,
+        "save_gbps": raw / save_s / 1e9, "load_gbps": raw / load_s / 1e9,
+        "torch_save_ms": tsave_s * 1e3, "torch_load_ms": tload_s * 1e3,
+        "torch_save_gbps": raw / tsave_s / 1e9, "torch_load_gbps": raw / tload_s / 1e9,
+        "calls": CKPT_CALLS, "launches_save_and_load": {k: v for k, v in launches.items() if v},
+        "cli_s": cli_s, "card": card,
+    }
+
+
+def cli_phase(words_a, arc_a, size_a):
+    """The file CLI in subprocesses on the card: path A's bf16 words
+    through `compress --float bf16 --no-checksum`, `info` and `decompress`;
+    the archive must equal path A's and the words come back. Returns the
+    seconds of each subprocess."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    n = words_a.numel() * 2
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "dietgpu_tpu_torch.cli", *args],
+                           capture_output=True, text=True, cwd=root, env=env, timeout=300)
+        require(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: {r.stderr[-3000:]}")
+        return r, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, arc, out = (os.path.join(tmp, f) for f in ("words.bin", "words.dg", "back.bin"))
+        words = words_a.cpu().numpy()
+        words.tofile(src)
+        _, t_c = cli("compress", "--float", "bf16", "--no-checksum", src, arc)
+        r, t_i = cli("info", arc)
+        _, t_d = cli("decompress", arc, out)
+        info = json.loads(r.stdout)
+        require(info == {"size": n, "float_type": 2, "use_checksum": False, "checksum": 0,
+                         "kind": "float", "float_type_name": "bf16"},
+                f"cli info: {info}")
+        want = arc_a.view(torch.uint8)[:size_a].cpu().numpy()
+        require(np.array_equal(np.fromfile(arc, np.uint8), want),
+                "cli: the archive differs from path A's")
+        require(np.array_equal(np.fromfile(out, np.uint8), words.view(np.uint8)),
+                "cli: the words did not come back")
+    log(f"  cli in subprocesses on the card: compress {t_c:.1f} s, info {t_i:.1f} s, "
+        f"decompress {t_d:.1f} s; archive equals path A's, words back bit for bit")
+    return {"compress": t_c, "info": t_i, "decompress": t_d}
+
+
+def stages_phase(port, words, n, Lw, ft):
+    """Profile one path A compress and decompress with profiler_start /
+    profiler_stop; every stage of the path must be in the trace, once, and
+    each kernel's launch inside its stage. Returns the `stages` rows."""
+    import re
+    import tempfile
+
+    import torch
+
+    from dietgpu_tpu_torch import profiling
+    from tools.profile_port import read_trace, stage_account
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        profiling.profiler_start(tmp)
+        try:
+            arc, _ = port.float_compress_padded(words, n, ft, 10, False)
+            port.float_decompress_padded(arc, ft, Lw, 10, False, static_length=n)
+        finally:
+            profiling.profiler_stop()
+        rows, launches = stage_account(read_trace(tmp))
+    for stage in A_STAGES:
+        require(rows.get(stage, {}).get("calls") == 1, f"stage {stage} is not once in the trace")
+    for kernel, stage in STAGE_OF_KERNEL.items():
+        seen = [st for name, st, _ in launches if re.search(rf"\b{kernel}\b", name)]
+        require(seen == [stage], f"kernel {kernel} launched in stages {seen}, not once in "
+                f"{stage}; device events: {[(k, st) for k, st, _ in launches][:40]}")
+    for stage, r in rows.items():
+        log(f"  {stage:28s} host {r['host_ms']:8.4f} ms (self {r['host_self_ms']:8.4f}), "
+            f"device {r['device_ms']:8.4f} ms (self {r['device_self_ms']:8.4f})")
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -2203,8 +2557,14 @@ def main():
         log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
 
+    # ---- 5. path L: a GPT-2 XL checkpoint; path A's stages ----
+    ckpt = checkpoint_path(port, dev, card, inputs[0], arc, size)
+    torch.cuda.empty_cache()
+    log("# phase 5: path A's stages, one compress and one decompress under the profiler")
+    stage_rows = stages_phase(port, inputs[0], n, Lw, ft)
+
     for m in list(sys.modules):
-        if m == "jax" or m.startswith(("jax.", "dietgpu_tpu.")) or m == "dietgpu_tpu":
+        if m.split(".")[0] in ("jax", "jaxlib", "dietgpu_tpu", "ml_dtypes"):
             raise AssertionError(f"{m} was imported")
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"collectives": {
@@ -2212,6 +2572,10 @@ def main():
         "measures": "world size 1: each exchange is a copy on the card, so ms is the codec's "
                     "cost beside the raw call's, not a wire saving",
         "rows": coll_rows}}))
+    print(json.dumps({"checkpoint": ckpt}))
+    print(json.dumps({"stages": {
+        "path": "A", "calls": "one float_compress_padded and one float_decompress_padded",
+        "card": card, "rows": stage_rows}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import torch
 
 from .. import _build
 from .. import constants as C
+from ..profiling import annotate
 from . import cuda_hist
 from . import encode as plain_encode
 from . import layout, stats
@@ -78,7 +79,7 @@ def assemble_payload_batched_cuda(arcs, ds32, staged, counts, prefix):
 
 def ans_encode_batched_into(
     arcs, base32, data32, lengths, prob_bits, pdfs, use_checksum=False,
-    checksums=None, *, plain, lengths_t=None,
+    checksums=None, *, plain, lengths_t=None, batched=False,
 ):
     """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
     int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
@@ -92,7 +93,9 @@ def ans_encode_batched_into(
     callers pass it for CPU tensors, and for the plain reference pipeline
     that the chip check runs on the card. Returns the archives' byte sizes,
     (B,) int64 on the device, with SIZE_OVERFLOW_BIT where a member's block
-    overflowed.
+    overflowed. `batched` names the stages' ranges ``ans.encode_kernel``,
+    ``ans.sections`` and ``ans.assembly`` or their ``_batched`` forms, as the
+    JAX package names those of its single and batched entry points.
     """
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
@@ -103,17 +106,22 @@ def ans_encode_batched_into(
     if any(m != n for m in lengths):
         n = lengths_t if lengths_t is not None else torch.tensor(
             lengths, dtype=torch.int64, device=data32.device)
-    tables = plain_encode.encode_table(pdfs)
-    encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
-    staged, counts, states = encode_fn(data32, n, prob_bits, tables)
-    prefix, ds32, ds32_t, sizes = plain_encode.write_sections_batched(
-        arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
-    )
-    assemble_fn = (
-        plain_encode.assemble_payload_batched if plain else assemble_payload_batched_cuda
-    )
-    ds = ds32[0] if all(d == ds32[0] for d in ds32) else ds32_t
-    assemble_fn(arcs, ds, staged, counts, prefix)
+    stage = "_batched" if batched else ""
+    cuda = data32.is_cuda
+    with annotate("ans.encode_kernel" + stage, cuda):
+        tables = plain_encode.encode_table(pdfs)
+        encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
+        staged, counts, states = encode_fn(data32, n, prob_bits, tables)
+    with annotate("ans.sections" + stage, cuda):
+        prefix, ds32, ds32_t, sizes = plain_encode.write_sections_batched(
+            arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
+        )
+    with annotate("ans.assembly" + stage, cuda):
+        assemble_fn = (
+            plain_encode.assemble_payload_batched if plain else assemble_payload_batched_cuda
+        )
+        ds = ds32[0] if all(d == ds32[0] for d in ds32) else ds32_t
+        assemble_fn(arcs, ds, staged, counts, prefix)
     return sizes
 
 
@@ -165,7 +173,7 @@ def _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
     elif precomputed_histogram is not None:
         hist = precomputed_histogram[None]
     arcs, sizes = _encode_batched(data[None], [length], pdfs, prob_bits, use_checksum,
-                                  plain, hist=hist)
+                                  plain, hist=hist, batched=False)
     return arcs[0], sizes[0]
 
 
@@ -193,7 +201,7 @@ def ans_encode_batched(
     depend on B.
     """
     return _encode_batched(datas, length, pdfs, prob_bits, use_checksum,
-                           plain=not datas.is_cuda)
+                           plain=not datas.is_cuda, batched=True)
 
 
 def ans_encode_batched_plain(
@@ -202,12 +210,14 @@ def ans_encode_batched_plain(
     """:func:`ans_encode_batched` through every kernel's plain version, on
     the device of `datas`: the reference the chip check holds the batched
     kernels against on the card."""
-    return _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain=True)
+    return _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain=True,
+                           batched=True)
 
 
-def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, hist=None):
+def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, batched, hist=None):
     """`hist`, if given, is each member's (B, 256) histogram of its first
-    length[m] bytes, in place of the histogram pass."""
+    length[m] bytes, in place of the histogram pass; `batched` as in
+    :func:`ans_encode_batched_into`."""
     if datas.dim() != 2:
         raise ValueError("ans encode: a batch is (B, L) uint8 or (B, L/4) int32")
     data32 = datas.contiguous().view(torch.int32) if datas.dtype == torch.uint8 else datas
@@ -240,6 +250,6 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, hist=No
     )
     sizes = ans_encode_batched_into(
         arcs, 0, data32, lengths, prob_bits, pdfs, use_checksum, cks, plain=plain,
-        lengths_t=lengths_t,
+        lengths_t=lengths_t, batched=batched,
     )
     return arcs, sizes

@@ -17,7 +17,9 @@ and never writes its inputs (``torch_api`` has the in-place contract):
   decompress_data_split_size          decompress_data_split_size
   decompress_data_simple              decompress_data_simple
 
-plus the stride forms and the header queries of the JAX package.
+plus the stride forms and the header queries of the JAX package, and
+``decompress_members``, ``decompress_data`` with each member's verdict
+left on the device (for the checkpoint, which names a failing entry).
 
 A batch is B tensors of any lengths, all on one device. They are gathered
 into the rows of one padded buffer (one copy per member, or one stack when
@@ -94,6 +96,23 @@ def _view_as(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.view(dtype)
 
 
+# dtypes a fused copy must not take as they are: on the card it copies
+# f16/bf16 through float, which rewrites every NaN as 0x7FFF where a
+# lossless codec keeps each payload, and it has no unsigned kernels
+_AS_SIGNED = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+              torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def copy_bits_(dsts: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> None:
+    """dsts[m] = srcs[m] bit for bit, in one fused copy; f16/bf16 and
+    unsigned members through same-width signed views (a view costs the
+    host about a microsecond, so only those are viewed)."""
+    if dsts:
+        torch._foreach_copy_(
+            [d.view(_AS_SIGNED[d.dtype]) if d.dtype in _AS_SIGNED else d for d in dsts],
+            [s.view(_AS_SIGNED[s.dtype]) if s.dtype in _AS_SIGNED else s for s in srcs])
+
+
 def _row_views(buf: torch.Tensor, lengths) -> list:
     """Views of the first lengths[m] elements of row m of a contiguous (B,
     W) buffer, made by one split."""
@@ -110,7 +129,7 @@ def _rows(rows: Sequence[torch.Tensor], width: int) -> torch.Tensor:
         return torch.stack(list(rows))
     rows = [r if r.numel() <= width else r[:width] for r in rows]
     out = torch.zeros((len(rows), width), dtype=rows[0].dtype, device=rows[0].device)
-    torch._foreach_copy_(_row_views(out, [r.numel() for r in rows]), rows)
+    copy_bits_(_row_views(out, [r.numel() for r in rows]), rows)
     return out
 
 
@@ -301,20 +320,46 @@ def decompress_data(
     checksum) takes it from the sizes instead and fails a member whose
     header's block count differs; the port has no such route.
     """
+    outs, ok, sizes_bytes, checksum_ok = decompress_members(
+        compress_as_float, ts_in, ts_out, checksum, prob_bits)
+    if checksum and not bool(checksum_ok.all()):
+        bad = torch.nonzero(~checksum_ok).flatten().tolist()
+        raise ValueError(f"checksum mismatch in batch elements {bad}")
+    caps = _out_caps(compress_as_float, ts_out)
+    temp_mem = ans_decode.decode_scratch_bytes(max(caps), len(ts_in))
+    return outs, ok.to(torch.uint8), sizes_bytes, temp_mem
+
+
+def _out_caps(compress_as_float: bool, ts_out) -> list:
+    """Each output's capacity: words for float archives, else bytes."""
+    return [t.numel() if compress_as_float else _byte_length(t) for t in ts_out]
+
+
+def decompress_members(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    ts_out: Sequence[torch.Tensor],
+    checksum: bool = False,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+):
+    """:func:`decompress_data` with each member's verdict on the device and
+    nothing read back: (outs, ok bool (B,), sizes int32 (B,), checksum_ok
+    bool (B,)). checksum_ok is False only where `checksum` is set and a
+    member's stored checksum differs from its decoded data's; the caller
+    decides what to raise."""
     B = len(ts_in)
     if B == 0 or len(ts_out) != B:
         raise ValueError(f"need one output per archive, got {B} archives and {len(ts_out)} outputs")
     dev = _device([*ts_in, *ts_out])
+    caps = _out_caps(compress_as_float, ts_out)
     if compress_as_float:
         ft = float_type_of(ts_out[0].dtype)
-        caps = [t.numel() for t in ts_out]
         Lw = _bucket_words(max(caps))
         arcs = _rows([_as_u8(t) for t in ts_in], codec.float_archive_buffer_bytes(ft, Lw))
         res = codec.float_decompress_batched(arcs.view(torch.int32), ft, Lw, prob_bits, checksum)
         out = res["out32"].view(_WORD[C.float_word_size(ft)])
         sizes_bytes = layout.to_i32(res["size"] * C.float_word_size(ft))
     else:
-        caps = [_byte_length(t) for t in ts_out]
         L = _bucket_words(max(caps))
         arcs = _rows([_as_u8(t) for t in ts_in], ans_encode.archive_buffer_bytes(L))
         res = cuda_decode.ans_decode_batched(arcs, prob_bits, L, None, checksum)
@@ -326,11 +371,7 @@ def decompress_data(
     else:
         views = [_view_as(out[m], t.dtype)[: t.numel()] for m, t in enumerate(ts_out)]
     outs = [v if v.shape == t.shape else v.view(t.shape) for v, t in zip(views, ts_out)]
-    if checksum and not bool(res["checksum_ok"].all()):
-        bad = torch.nonzero(~res["checksum_ok"]).flatten().tolist()
-        raise ValueError(f"checksum mismatch in batch elements {bad}")
-    temp_mem = ans_decode.decode_scratch_bytes(max(caps), B)
-    return outs, ok.to(torch.uint8), sizes_bytes, temp_mem
+    return outs, ok, sizes_bytes, res["checksum_ok"]
 
 
 def decompress_data_simple(

@@ -30,7 +30,12 @@ import torch
 from .. import constants as C
 from ..ans import cuda_decode, cuda_encode, layout, stats
 from ..ans import encode as ans_encode
+from ..profiling import annotate
 from . import cuda_float
+
+
+# the fused decode+join's stage range, by whether the type is f32
+_DECODE_STAGE = ("float.fused_decode_join", "float.fused_decode_join_f32")
 
 
 def float_archive_buffer_bytes(float_type: int, padded_words: int) -> int:
@@ -103,7 +108,7 @@ def float_compress_padded_plain(
 def _compress(words, length, float_type, prob_bits, use_checksum, plain):
     words = _as_words(words, float_type)
     arcs, sizes = _compress_batched(words[None], int(length), float_type, prob_bits,
-                                    use_checksum, plain)
+                                    use_checksum, plain, batched=False)
     return arcs[0], sizes[0]
 
 
@@ -127,10 +132,11 @@ def float_decompress_padded(
     checksum_ok (bool; False only on a verified mismatch), all on the
     archive's device.
     """
-    out32, success, size, digest = cuda_decode.decode_float(
-        archive, float_type, out_max_words, prob_bits, static_length,
-        with_digest=verify_checksum,
-    )
+    with annotate(_DECODE_STAGE[float_type == C.FLOAT_TYPE_FLOAT32], archive.is_cuda):
+        out32, success, size, digest = cuda_decode.decode_float(
+            archive, float_type, out_max_words, prob_bits, static_length,
+            with_digest=verify_checksum,
+        )
     checksum_ok = torch.ones((), dtype=torch.bool, device=archive.device)
     if verify_checksum:
         opts, stored = layout.to_u32(archive[2:4]).unbind()
@@ -175,7 +181,8 @@ def float_compress_batched(
     the same few whatever B is.
     """
     return _compress_batched(
-        words, length, float_type, prob_bits, use_checksum, plain=not words.is_cuda
+        words, length, float_type, prob_bits, use_checksum, plain=not words.is_cuda,
+        batched=True,
     )
 
 
@@ -189,10 +196,13 @@ def float_compress_batched_plain(
     """:func:`float_compress_batched` through every kernel's plain version,
     on the device of `words`: the reference the chip check holds the
     batched kernels against on the card."""
-    return _compress_batched(words, length, float_type, prob_bits, use_checksum, plain=True)
+    return _compress_batched(words, length, float_type, prob_bits, use_checksum, plain=True,
+                             batched=True)
 
 
-def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain):
+def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain, batched):
+    """`batched` names the ANS stages' ranges: the ``_batched`` forms for
+    the batched entry points, as the JAX package names them."""
     if float_type not in cuda_decode.FLOAT_TYPES:
         raise ValueError(f"float type {float_type} is not f16/bf16/f32")
     if prob_bits not in C.SUPPORTED_PROB_BITS:
@@ -227,30 +237,35 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain)
         arcs[:, :4] = layout.to_i32(host[:4].T)
         n = lengths_t = host[4]
         base32, base_t = base.tolist(), host[5]
-    if f32:
-        split_fn = (
-            cuda_float.split_words_f32_batched_plain if plain
-            else cuda_float.split_words_f32_batched_cuda
-        )
-        exp32, _, _, hist, cks = split_fn(
-            words, lengths, use_checksum, planes_out=arcs[:, 4:], lengths_t=lengths_t,
-        )
-    else:
-        split_fn = (
-            cuda_float.split_words_batched_plain if plain
-            else cuda_float.split_words_batched_cuda
-        )
-        exp32, _, hist, cks = split_fn(
-            words, lengths, float_type, use_checksum, nc_out=arcs[:, 4 : 4 + Lw // 4],
-            lengths_t=lengths_t,
-        )
-    pdfs = stats.normalize_probs(hist, n, prob_bits)
+    cuda = words.is_cuda
+    with annotate("float.split", cuda):
+        if f32:
+            split_fn = (
+                cuda_float.split_words_f32_batched_plain if plain
+                else cuda_float.split_words_f32_batched_cuda
+            )
+            exp32, _, _, hist, cks = split_fn(
+                words, lengths, use_checksum, planes_out=arcs[:, 4:], lengths_t=lengths_t,
+            )
+        else:
+            split_fn = (
+                cuda_float.split_words_batched_plain if plain
+                else cuda_float.split_words_batched_cuda
+            )
+            exp32, _, hist, cks = split_fn(
+                words, lengths, float_type, use_checksum, nc_out=arcs[:, 4 : 4 + Lw // 4],
+                lengths_t=lengths_t,
+            )
+    with annotate("float.stats", cuda):
+        pdfs = stats.normalize_probs(hist, n, prob_bits)
     if use_checksum:
         arcs[:, 3] = cks
 
-    ans_sizes = cuda_encode.ans_encode_batched_into(
-        arcs, base32, exp32, lengths, prob_bits, pdfs, plain=plain, lengths_t=lengths_t
-    )
+    with annotate("float.ans_encode", cuda):
+        ans_sizes = cuda_encode.ans_encode_batched_into(
+            arcs, base32, exp32, lengths, prob_bits, pdfs, plain=plain, lengths_t=lengths_t,
+            batched=batched,
+        )
     return arcs, ans_sizes + 4 * base_t
 
 
@@ -277,11 +292,12 @@ def float_decompress_batched(
     dim: out32 ((B, out_max_words/2) int32 word pairs for f16/bf16, (B,
     out_max_words) int32 words for f32), size, success, checksum_ok.
     """
-    out32, success, size, digest = cuda_decode.decode_float_batched(
-        archives, float_type, out_max_words, prob_bits, static_length,
-        with_digest=verify_checksum,
-        static_nb=cuda_decode.static_block_count(static_length, out_max_words),
-    )
+    with annotate(_DECODE_STAGE[float_type == C.FLOAT_TYPE_FLOAT32], archives.is_cuda):
+        out32, success, size, digest = cuda_decode.decode_float_batched(
+            archives, float_type, out_max_words, prob_bits, static_length,
+            with_digest=verify_checksum,
+            static_nb=cuda_decode.static_block_count(static_length, out_max_words),
+        )
     checksum_ok = torch.ones(archives.shape[0], dtype=torch.bool, device=archives.device)
     if verify_checksum:
         opts, stored = layout.to_u32(archives[:, 2:4]).unbind(1)

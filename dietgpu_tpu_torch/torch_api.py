@@ -106,8 +106,7 @@ def _write_ok(dsts, srcs, status) -> None:
     """Copy each decoded member into its destination where status is 1, in
     one fused copy."""
     keep = [m for m, ok in enumerate(status.tolist()) if ok]
-    if keep:
-        torch._foreach_copy_([dsts[m] for m in keep], [srcs[m] for m in keep])
+    api.copy_bits_([dsts[m] for m in keep], [srcs[m] for m in keep])
 
 
 def decompress_data(

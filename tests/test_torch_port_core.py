@@ -60,8 +60,8 @@ def test_constants_match_jax_package():
 
 
 def test_import_hygiene_no_jax():
-    """The port imports neither jax nor dietgpu_tpu, and runs a CPU
-    roundtrip with both blocked."""
+    """The port imports neither jax, ml_dtypes nor dietgpu_tpu, and runs a
+    CPU roundtrip, a checkpoint among them, with all three blocked."""
     code = textwrap.dedent(
         """
         import sys
@@ -69,14 +69,16 @@ def test_import_hygiene_no_jax():
         class Block:
             def find_spec(self, name, path=None, target=None):
                 root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "dietgpu_tpu"):
+                if root in ("jax", "jaxlib", "dietgpu_tpu", "ml_dtypes"):
                     raise ImportError(f"blocked import of {name}")
                 return None
 
         sys.meta_path.insert(0, Block())
         import torch
         import dietgpu_tpu_torch as port
+        import io
         from dietgpu_tpu_torch import api, headers, interop, torch_api  # noqa: F401
+        from dietgpu_tpu_torch import checkpoint, cli, profiling  # noqa: F401
         from dietgpu_tpu_torch.floatcodec import codec
 
         x = torch.randn(5000, generator=torch.Generator().manual_seed(1))
@@ -103,7 +105,17 @@ def test_import_hygiene_no_jax():
         e = torch.arange(16, dtype=torch.int32)
         assert port.join_words_packed(e, e, 2).shape == (32,)
         assert port.join_words_packed_f32(e, torch.cat([e, e]), e).shape == (64,)
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "dietgpu_tpu")]
+        sd = {"w": x.to(torch.bfloat16).view(50, 100), "b": x[:7], "n": torch.tensor(3),
+              "m": x[:9] > 0}
+        buf = io.BytesIO()
+        checkpoint.save_arrays(buf, sd, device="cpu")
+        buf.seek(0)
+        back = checkpoint.load_arrays(buf, device="cpu")
+        assert all(torch.equal(back[k], v) and back[k].dtype == v.dtype for k, v in sd.items())
+        with profiling.annotate("float.split"):
+            pass
+        blocked = ("jax", "dietgpu_tpu", "ml_dtypes")
+        assert not [m for m in sys.modules if m.split(".")[0] in blocked]
         print("OK")
         """
     )

@@ -199,3 +199,78 @@ def test_front_end_on_card(cuda_device):
     assert _build.kernel_launches()["decode"] == 1
     assert st.is_cuda and st.tolist() == [1] * len(ts)
     assert all(torch.equal(o.cpu(), t) for o, t in zip(outs, ts))
+
+
+# NaN payloads that a float round trip would rewrite (CUDA's conversions
+# give 0x7FFF for every f16/bf16 NaN): each must come back bit for bit.
+NAN_BITS = {
+    torch.float16: [0x7E00, 0x7E01, -0x0200, 0x7C01, 0x7FFF],
+    torch.bfloat16: [0x7FC0, 0x7FC1, -0x0040, 0x7F81, 0x7FFF],
+    torch.float32: [0x7FC00000, 0x7FC00001, -0x00400000, 0x7F800001],
+}
+
+
+def _nan_payloads(dtype, n, device="cpu"):
+    word = torch.int32 if dtype == torch.float32 else torch.int16
+    x = _gaussian(n, dtype).view(word).clone()
+    bits = torch.tensor(NAN_BITS[dtype], dtype=word)
+    x[: len(bits)] = bits
+    x[-len(bits):] = bits
+    return x.view(dtype).to(device)
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _nan_payload_round_trips(dev):
+    """torch_api's in-place decompress, api's stride decompress (equal and
+    ragged rows) and the checkpoint's load, for f16/bf16/f32 tensors with
+    NaN payloads; returns nothing, asserts every output bit."""
+    import io
+
+    from dietgpu_tpu_torch import api, checkpoint
+
+    for dtype in NAN_BITS:
+        ts = [_nan_payloads(dtype, n, dev) for n in (5000, 4096, 77)]
+        comp, sizes, _ = ptapi.compress_data(True, ts)
+        outs = [torch.zeros_like(t) for t in ts]
+        status, _, _ = ptapi.decompress_data(True, rows(comp, sizes), outs)
+        assert status.tolist() == [1, 1, 1]
+        assert all(torch.equal(_bits(o), _bits(t)) for o, t in zip(outs, ts)), dtype
+        for lens in ([5000, 4096, 77], [5000] * 3):
+            stride_in = [t[:n] if t.numel() >= n else torch.cat([t, t[: n - t.numel()]])
+                         for t, n in zip([ts[0]] * 3, lens)]
+            c, s, _ = api.compress_data(True, stride_in)
+            out2d, st, _, _ = api.decompress_data_stride(True, rows(c, s), 3, 5000, dtype, lens)
+            assert st.tolist() == [1, 1, 1]
+            for b, n in enumerate(lens):
+                assert torch.equal(_bits(out2d[b, :n]), _bits(stride_in[b])), (dtype, lens)
+        buf = io.BytesIO()
+        checkpoint.save_arrays(buf, {f"t{i}": t for i, t in enumerate(ts)}, device=dev)
+        buf.seek(0)
+        back = checkpoint.load_arrays(buf, device=dev)
+        assert all(torch.equal(_bits(back[f"t{i}"]), _bits(t)) for i, t in enumerate(ts))
+
+
+def test_decoded_copies_keep_nan_payloads(monkeypatch):
+    """The fused copies that write decoded f16/bf16 tensors run on int16
+    views: on the card a fused copy of f16/bf16 goes through float and
+    rewrites NaN payloads. On the CPU the bits survive either way, so the
+    copies' dtypes are checked too."""
+    seen = []
+    copy = torch._foreach_copy_
+
+    def recording(dsts, srcs, *a, **k):
+        seen.extend(t.dtype for t in (*dsts, *srcs))
+        return copy(dsts, srcs, *a, **k)
+
+    monkeypatch.setattr(torch, "_foreach_copy_", recording)
+    _nan_payload_round_trips("cpu")
+    assert torch.float32 in seen
+    assert not {torch.float16, torch.bfloat16} & set(seen), set(seen)
+
+
+@pytest.mark.gpu
+def test_decoded_copies_keep_nan_payloads_on_card(cuda_device):
+    _nan_payload_round_trips(cuda_device)

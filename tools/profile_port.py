@@ -6,7 +6,9 @@ and decompresses 128Mi bf16 words (made as bench.py makes them), path B
 128Mi f32 words (standard normal), path C encodes and decodes 2^28
 exponential bytes (as benchmarks/sweep.py makes them); the batched paths
 D (128 bf16 members of 512Ki words), E (the same in f32) and F (64 raw
-members of 1-4 MiB, ragged) as chip_smoke.py makes them; and the API
+members of 1-4 MiB, ragged) as chip_smoke.py makes them; path L
+(chip_smoke.py's GPT-2 XL state dict saved to and loaded from a BytesIO
+through ``checkpoint``); and the API
 paths: G (D's members as 128 tensors through ``torch_api``, decompressed
 in place) and H (64 ragged bf16 tensors of 512Ki-2Mi words through
 ``api``); E's split alone, into separate planes; the joins of path J
@@ -31,6 +33,18 @@ members): their torch ops per call must not depend on B. The device
 events recorded per call are printed beside them; the profiler has been
 seen to record fewer in some calls than were launched.
 
+Then it times what one stage range costs the host outside a capture, and
+attributes the time of paths A, C and G compress to the codec's
+stage ranges (``dietgpu_tpu_torch.profiling``: float.split, float.stats,
+float.ans_encode, ans.encode_kernel, ans.sections, ans.assembly and their
+``_batched`` forms), from a trace taken with ``profiler_start`` /
+``profiler_stop``: for each stage, its host self ms (its range's length
+less the stages nested in it) and the device ms of the kernels launched
+inside it and in no nested stage; "(outside the stages)" holds the
+kernels launched elsewhere in the call (the histogram, the API's glue).
+``read_trace`` and ``stage_account`` are what chip_smoke.py's `stages`
+line is made with.
+
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_port.py
@@ -38,11 +52,102 @@ Run from the root of a checkout on a machine with a CUDA card:
 Prints readable lines, then one JSON line with the numbers.
 """
 
+import gzip
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+STAGE_PREFIX = "dietgpu."
+OUTSIDE = "(outside the stages)"
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def _under_ranges_only(event) -> bool:
+    """Whether a profiler event has no parent but stage ranges: a torch op
+    the call launched itself."""
+    p = event.cpu_parent
+    while p is not None and p.name.startswith(STAGE_PREFIX):
+        p = p.cpu_parent
+    return p is None
+
+
+def read_trace(logdir) -> list:
+    """The events of the one trace that ``profiler_stop`` wrote into
+    `logdir` (a Chrome trace, gzipped or not)."""
+    files = sorted(Path(logdir).glob("*.pt.trace.json*"))
+    if len(files) != 1:
+        raise RuntimeError(f"expected one trace in {logdir}, found {[f.name for f in files]}")
+    opener = gzip.open if files[0].suffix == ".gz" else open
+    with opener(files[0], "rt") as f:
+        return json.load(f)["traceEvents"]
+
+
+def stage_account(events) -> tuple:
+    """Attribute a trace's time to the ``dietgpu.*`` stage ranges.
+
+    Returns (rows, launches). rows: {stage name without the prefix: {calls,
+    host_ms, host_self_ms, device_ms, device_self_ms}}, host_ms the sum of
+    the range's lengths, host_self_ms less the stages nested in it,
+    device_ms the device time (kernels, copies, memsets) launched inside
+    it, device_self_ms of that launched in no nested stage; OUTSIDE holds
+    the device events launched in no stage. launches: (device event name,
+    the innermost stage its launch fell in or None, ms) for every device
+    event, matched to its launch (a CUDA runtime or driver call) by the
+    trace's correlation id.
+    """
+    stages = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name", "").startswith(STAGE_PREFIX)),
+                    key=lambda e: (e["ts"], -e["dur"]))
+
+    def innermost(t):
+        """The range containing time t that starts last (the innermost)."""
+        best = None
+        for s in stages:
+            if s["ts"] <= t <= s["ts"] + s["dur"]:
+                best = s
+        return best
+
+    rows = {}
+
+    def row(s):
+        name = OUTSIDE if s is None else s["name"][len(STAGE_PREFIX):]
+        return rows.setdefault(name, {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
+                                      "device_ms": 0.0, "device_self_ms": 0.0})
+
+    parent = {}
+    for i, s in enumerate(stages):  # a range's container comes before it
+        p = None
+        for c in stages[:i]:
+            if c["ts"] + c["dur"] >= s["ts"] + s["dur"]:
+                p = c
+        parent[id(s)] = p
+        r = row(s)
+        r["calls"] += 1
+        r["host_ms"] += s["dur"] / 1e3
+        r["host_self_ms"] += s["dur"] / 1e3
+        if p is not None:
+            row(p)["host_self_ms"] -= s["dur"] / 1e3
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in _LAUNCH_CATS and "correlation" in e.get("args", {})}
+    launches = []
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        s = None if t is None else innermost(t)
+        ms = e["dur"] / 1e3
+        launches.append((e["name"], None if s is None else s["name"][len(STAGE_PREFIX):], ms))
+        row(s)["device_self_ms"] += ms
+        while s is not None:
+            row(s)["device_ms"] += ms
+            s = parent[id(s)]
+    rows.setdefault(OUTSIDE, {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
+                              "device_ms": 0.0, "device_self_ms": 0.0})
+    rows[OUTSIDE]["device_ms"] = rows[OUTSIDE]["device_self_ms"]
+    return rows, launches
 
 MWORDS = 128  # bench.py's size, Mi words
 BATCH, MEMBER_WORDS = 128, 1 << 19  # paths D and E
@@ -148,6 +253,22 @@ def main():
         "J join": lambda: port.join_words_packed(*planes, bf16),
         "J join_f32": lambda: port.join_words_packed_f32(*planes_f32),
     }
+    # path L: chip_smoke.py's GPT-2 XL state dict through the checkpoint,
+    # on a BytesIO
+    import io
+
+    from chip_smoke import GPT2_XL, gpt2_state_dict
+    from dietgpu_tpu_torch import checkpoint
+
+    sd = gpt2_state_dict(torch.device("cuda"), **GPT2_XL)
+    buf = io.BytesIO()
+    checkpoint.save_arrays(buf, sd)
+    blob = buf.getvalue()
+    del buf
+    calls.update({
+        "L save": lambda: checkpoint.save_arrays(io.BytesIO(), sd),
+        "L load": lambda: checkpoint.load_arrays(io.BytesIO(blob)),
+    })
     # path K: a world-1 NCCL group (one card; NCCL puts no two ranks of a
     # communicator on one device)
     import os
@@ -199,14 +320,15 @@ def main():
             for _ in range(ITERS):
                 fn()
             torch.cuda.synchronize()
-        kernels = [
+        kernels = [  # the stage ranges' spans on the device's timeline are not work
             e for e in prof.events()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.name.startswith(STAGE_PREFIX)
         ]
         busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / ITERS
         torch_ops = [
             e for e in prof.events()
-            if e.cpu_parent is None and e.name.startswith("aten::")
+            if e.name.startswith("aten::") and _under_ranges_only(e)
         ]
         by_name = {}
         for e in kernels:
@@ -235,6 +357,41 @@ def main():
             print(f"    {v:9.4f} ms host (self)  {k[:80]}")
     torch.distributed.destroy_process_group()
     shutil.rmtree(rdv, ignore_errors=True)
+    # the compress glue by stage: paths A, C and G compress under
+    # profiler_start / profiler_stop, per call
+    from dietgpu_tpu_torch import profiling
+
+    # what a stage range costs the host outside a capture (path A compress
+    # enters six, its decompress one, C's encode three)
+    n_ranges = 100000
+    range_us = {}
+    for nvtx in (False, True):
+        t0 = time.perf_counter()
+        for _ in range(n_ranges):
+            with profiling.annotate("float.split", nvtx):
+                pass
+        range_us["with NVTX" if nvtx else "host only"] = (time.perf_counter() - t0) / n_ranges * 1e6
+    report["stage range us"] = range_us
+    print(f"# a stage range outside a capture: {range_us['host only']:.4f} us, with NVTX "
+          f"{range_us['with NVTX']:.4f} us; six of them {6 * range_us['with NVTX']:.2f} us "
+          f"against path A compress's {report['compress']['wall_ms'] * 1e3:.1f} us ({card})")
+
+    for name in ("compress", "raw encode", "G compress"):
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            profiling.profiler_start(tmp)
+            try:
+                for _ in range(ITERS):
+                    calls[name]()
+            finally:
+                profiling.profiler_stop()
+            rows, _ = stage_account(read_trace(tmp))
+        per_call = {stage: {k: (v / ITERS if k != "calls" else v // ITERS) for k, v in r.items()}
+                    for stage, r in rows.items()}
+        report[f"stages: {name}"] = per_call
+        print(f"# stages of {name}, per call ({card}): host self ms, kernel ms")
+        for stage, r in per_call.items():
+            print(f"    {stage:28s} {r['host_self_ms']:9.4f}  {r['device_self_ms']:9.4f}")
     # normalize_probs on a whole batch of histograms at the widest table:
     # its extra device memory and time
     from dietgpu_tpu_torch.ans import stats
