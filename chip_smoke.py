@@ -1695,6 +1695,7 @@ GPT2_XL = {"layers": 48, "width": 1600, "vocab": 50257, "ctx": 1024}
 CKPT_CALLS = 3  # timed calls of save, load, torch.save and torch.load (median kept)
 CKPT_CPU_ENTRIES = 40  # the smallest entries, saved again through device="cpu"
 CKPT_DISK_LAYERS = 4  # the layers written to a file in a temporary directory
+CKPT_PLAIN_BYTES = 1 << 28  # padded input of one plain-pipeline call of path L's check
 # path A's stage ranges, and the stage each of its kernels must launch in
 A_STAGES = ("float.split", "float.stats", "float.ans_encode", "ans.encode_kernel",
             "ans.sections", "ans.assembly", "float.fused_decode_join")
@@ -1798,6 +1799,57 @@ def single_archive(port, t):
     return np.asarray(arc.view(torch.uint8)[: int(size)].cpu().numpy())
 
 
+def checkpoint_vs_plain(sd, entries, groups):
+    """Each entry's archive in path L's file against the plain pipeline on
+    the card, at the kernels' own shapes: the checkpoint's groups (kind,
+    float type, power-of-two class of the word or byte count), each padded
+    to its widest member as ``api.compress_data`` pads it, through
+    ``float_compress_batched_plain`` / ``ans_encode_batched_plain`` with
+    the checksum, in runs of rows of at most CKPT_PLAIN_BYTES (a member's
+    archive does not depend on the rows beside it). Returns the number of
+    plain calls."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch.ans import cuda_encode
+    from dietgpu_tpu_torch.floatcodec import codec
+
+    floats = {torch.float16: 1, torch.bfloat16: 2, torch.float32: 3}
+    word = {2: torch.int16, 4: torch.int32}
+    archives = {name: arc for name, *_, arc in entries}
+    grouped = {}
+    for name, t in sd.items():
+        flat = t.reshape(-1)
+        flat = flat.view(word[t.element_size()] if t.dtype in floats else torch.uint8)
+        key = (floats.get(t.dtype, 0), max(flat.numel() - 1, 0).bit_length())
+        grouped.setdefault(key, []).append((name, flat))
+    require(len(grouped) == groups,
+            f"path L: {len(grouped)} groups by kind, type and size class; the save encoded {groups}")
+    calls = 0
+    for (ft, _), members in grouped.items():
+        width = -(-max(max(f.numel() for _, f in members), 1) // 4096) * 4096
+        step = max(1, CKPT_PLAIN_BYTES // (width * members[0][1].element_size()))
+        for i in range(0, len(members), step):
+            run = members[i : i + step]
+            rows = torch.zeros((len(run), width), dtype=run[0][1].dtype, device=run[0][1].device)
+            for m, (_, f) in enumerate(run):
+                rows[m, : f.numel()] = f
+            lens = [f.numel() for _, f in run]
+            if ft:
+                pa, ps = codec.float_compress_batched_plain(rows, lens, ft, 10, True)
+            else:
+                pa, ps = cuda_encode.ans_encode_batched_plain(rows, lens, None, 10, True)
+            pa = pa.view(torch.uint8)
+            for m, ((name, _), size) in enumerate(zip(run, ps.tolist())):
+                require(size >= 0, f"path L: {name} overflowed in the plain pipeline")
+                require(np.array_equal(pa[m, :size].cpu().numpy(),
+                                       np.frombuffer(archives[name], np.uint8)),
+                        f"path L: {name}'s archive differs from the plain pipeline's")
+            calls += 1
+            del rows, pa, ps
+    return calls
+
+
 def median_s(fn, calls=CKPT_CALLS):
     """Median host seconds of `calls` synchronised calls (a first call
     warms up)."""
@@ -1820,7 +1872,8 @@ def checkpoint_path(port, dev, card, words_a, arc_a, size_a):
     """Path L: a GPT-2 XL state dict through ``checkpoint.save_arrays`` /
     ``load_arrays`` on the card (an io.BytesIO, prob_bits 10, checksum
     on). Checks that the tensors come back bit for bit, that each entry's
-    archive in the file equals its single-tensor kernel archive, that the
+    archive in the file equals its single-tensor kernel archive and the
+    plain pipeline's on the card at its group's shape, that the
     smallest entries give the same archives through device="cpu", that a
     file on disk equals the BytesIO bytes, and that the CLI, in
     subprocesses on the card, gives path A's archive and words back.
@@ -1864,6 +1917,9 @@ def checkpoint_path(port, dev, card, words_a, arc_a, size_a):
         require(np.array_equal(np.frombuffer(arc, np.uint8), single_archive(port, sd[name])),
                 f"path L: {name}'s archive differs from its single-tensor archive")
     log("  each entry's archive equals its single-tensor kernel archive")
+    calls = checkpoint_vs_plain(sd, entries, groups)
+    log(f"  each entry's archive equals the plain pipeline's on the card, its group padded "
+        f"as the save pads it ({groups} groups, {calls} batched plain calls)")
 
     small = sorted(sd, key=lambda k: sd[k].numel() * sd[k].element_size())[:CKPT_CPU_ENTRIES]
     buf = io.BytesIO()
@@ -1988,7 +2044,6 @@ def stages_phase(port, words, n, Lw, ft):
     import torch
 
     from dietgpu_tpu_torch import profiling
-    from tools.profile_port import read_trace, stage_account
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
@@ -1998,7 +2053,7 @@ def stages_phase(port, words, n, Lw, ft):
             port.float_decompress_padded(arc, ft, Lw, 10, False, static_length=n)
         finally:
             profiling.profiler_stop()
-        rows, launches = stage_account(read_trace(tmp))
+        rows, launches = profiling.stage_account(profiling.read_trace(tmp))
     for stage in A_STAGES:
         require(rows.get(stage, {}).get("calls") == 1, f"stage {stage} is not once in the trace")
     for kernel, stage in STAGE_OF_KERNEL.items():

@@ -96,21 +96,28 @@ def _view_as(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.view(dtype)
 
 
-# dtypes a fused copy must not take as they are: on the card it copies
-# f16/bf16 through float, which rewrites every NaN as 0x7FFF where a
-# lossless codec keeps each payload, and it has no unsigned kernels
-_AS_SIGNED = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
-              torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+# the same-width integer dtypes that carry the bits of those a fused copy
+# must not take as they are: on the card it copies f16/bf16 through float,
+# which rewrites every NaN as 0x7FFF where a lossless codec keeps each
+# payload, and torch has few kernels for unsigned and bool tensors
+_BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+         torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64,
+         torch.bool: torch.uint8}
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """`t` as its same-width integer dtype where torch ops would not carry
+    its bits as they are (f16/bf16, unsigned, bool); else `t` itself."""
+    return t.view(_BITS[t.dtype]) if t.dtype in _BITS else t
 
 
 def copy_bits_(dsts: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> None:
-    """dsts[m] = srcs[m] bit for bit, in one fused copy; f16/bf16 and
-    unsigned members through same-width signed views (a view costs the
-    host about a microsecond, so only those are viewed)."""
+    """dsts[m] = srcs[m] bit for bit, in one fused copy, through
+    :func:`as_bits` (a view costs the host about a microsecond, so only
+    the members that need one are viewed: pass sources already in their
+    integer dtype where the caller has them so)."""
     if dsts:
-        torch._foreach_copy_(
-            [d.view(_AS_SIGNED[d.dtype]) if d.dtype in _AS_SIGNED else d for d in dsts],
-            [s.view(_AS_SIGNED[s.dtype]) if s.dtype in _AS_SIGNED else s for s in srcs])
+        torch._foreach_copy_([as_bits(d) for d in dsts], [as_bits(s) for s in srcs])
 
 
 def _row_views(buf: torch.Tensor, lengths) -> list:
@@ -320,8 +327,13 @@ def decompress_data(
     checksum) takes it from the sizes instead and fails a member whose
     header's block count differs; the port has no such route.
     """
+    return _decompress_checked(compress_as_float, ts_in, ts_out, checksum, prob_bits)
+
+
+def _decompress_checked(compress_as_float, ts_in, ts_out, checksum, prob_bits, bits=False):
+    """:func:`decompress_data`; `bits` as in :func:`decompress_members`."""
     outs, ok, sizes_bytes, checksum_ok = decompress_members(
-        compress_as_float, ts_in, ts_out, checksum, prob_bits)
+        compress_as_float, ts_in, ts_out, checksum, prob_bits, bits=bits)
     if checksum and not bool(checksum_ok.all()):
         bad = torch.nonzero(~checksum_ok).flatten().tolist()
         raise ValueError(f"checksum mismatch in batch elements {bad}")
@@ -341,12 +353,16 @@ def decompress_members(
     ts_out: Sequence[torch.Tensor],
     checksum: bool = False,
     prob_bits: int = C.DEFAULT_PROB_BITS,
+    *,
+    bits: bool = False,
 ):
     """:func:`decompress_data` with each member's verdict on the device and
     nothing read back: (outs, ok bool (B,), sizes int32 (B,), checksum_ok
     bool (B,)). checksum_ok is False only where `checksum` is set and a
     member's stored checksum differs from its decoded data's; the caller
-    decides what to raise."""
+    decides what to raise. With `bits`, outs[m] holds ts_out[m]'s dtype as
+    :func:`as_bits` gives it (int16 for f16/bf16): the sources a caller
+    that copies the outputs on passes to :func:`copy_bits_`."""
     B = len(ts_in)
     if B == 0 or len(ts_out) != B:
         raise ValueError(f"need one output per archive, got {B} archives and {len(ts_out)} outputs")
@@ -366,10 +382,11 @@ def decompress_members(
         out = res["out"]
         sizes_bytes = layout.to_i32(res["size"])
     ok = res["success"] & (res["size"] <= torch.tensor(caps, dtype=torch.int64, device=dev))
-    if len({t.dtype for t in ts_out}) == 1:
-        views = _row_views(_view_as(out, ts_out[0].dtype), [t.numel() for t in ts_out])
+    dtypes = [_BITS.get(t.dtype, t.dtype) if bits else t.dtype for t in ts_out]
+    if len(set(dtypes)) == 1:
+        views = _row_views(_view_as(out, dtypes[0]), [t.numel() for t in ts_out])
     else:
-        views = [_view_as(out[m], t.dtype)[: t.numel()] for m, t in enumerate(ts_out)]
+        views = [_view_as(out[m], d)[: t.numel()] for m, (t, d) in enumerate(zip(ts_out, dtypes))]
     outs = [v if v.shape == t.shape else v.view(t.shape) for v, t in zip(views, ts_out)]
     return outs, ok, sizes_bytes, res["checksum_ok"]
 

@@ -66,10 +66,6 @@ _DTYPE_BY_CODE = {v: k for k, v in _DTYPE_CODES.items()}
 _FLOAT_TYPES = {"float16": 1, "bfloat16": 2, "float32": 3}
 _KIND_FLOAT, _KIND_ANS = 1, 2
 _TORCH_DTYPES = {name: getattr(torch, name) for name in _DTYPE_CODES}
-# unsigned and bool tensors take few torch ops besides view: a signed view
-# of the same width carries their bytes
-_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
-           torch.uint64: torch.int64, torch.bool: torch.uint8}
 
 
 def _size_class(count: int) -> int:
@@ -87,7 +83,9 @@ def _entry(name: str, a):
         if dtname not in _DTYPE_CODES:
             raise TypeError(f"unsupported dtype {dtname} for entry {name}")
         shape = tuple(t.shape)
-        t = t.view(_SIGNED.get(t.dtype, t.dtype)).contiguous().reshape(-1)
+        if not t.is_contiguous():  # C order through the bits: a float copy may rewrite NaNs
+            t = api.as_bits(t).contiguous().view(t.dtype)
+        t = t.reshape(-1)
     else:
         a = np.asarray(a)
         dtname = a.dtype.name
@@ -257,7 +255,7 @@ def load_arrays(path_or_file, device=None) -> dict:
         dtype = _TORCH_DTYPES[dtname] if kind == _KIND_FLOAT else torch.uint8
         exact = [torch.empty(counts[i], dtype=dtype, device=dev) for i in members]
         outs, ok, _, checksum_ok = api.decompress_members(
-            kind == _KIND_FLOAT, ins, exact, True, prob_bits)
+            kind == _KIND_FLOAT, ins, exact, True, prob_bits, bits=True)
         ok, checksum_ok = torch.stack([ok, checksum_ok]).cpu().tolist()
         for i, good, ck in zip(members, ok, checksum_ok):
             if not good:

@@ -103,8 +103,8 @@ def compress_data_simple(
 
 
 def _write_ok(dsts, srcs, status) -> None:
-    """Copy each decoded member into its destination where status is 1, in
-    one fused copy."""
+    """Copy each decoded member (in its integer dtype) into its destination
+    where status is 1, in one fused copy."""
     keep = [m for m, ok in enumerate(status.tolist()) if ok]
     api.copy_bits_([dsts[m] for m in keep], [srcs[m] for m in keep])
 
@@ -120,8 +120,8 @@ def decompress_data(
     (B,), sizes int32 (B,), temp_mem_used). status[b] = 0 with the required
     byte count in sizes[b] when ts_out[b] is too small, and ts_out[b] is
     then left as it was; a checksum mismatch raises (DietGpu.cpp:530-677)."""
-    outs, status, sizes, tm = api.decompress_data(
-        compress_as_float, ts_in, ts_out, checksum, prob_bits
+    outs, status, sizes, tm = api._decompress_checked(
+        compress_as_float, ts_in, ts_out, checksum, prob_bits, bits=True
     )
     _write_ok(ts_out, outs, status)
     return status, sizes, tm
@@ -141,8 +141,8 @@ def decompress_data_split_size(
     if not t_out.is_contiguous():
         raise ValueError("decompress_data_split_size: t_out must be contiguous")
     pieces = api._split_pieces(t_out.view(-1), _ints(split_sizes), "output")
-    outs, status, sizes, tm = api.decompress_data(
-        compress_as_float, ts_in, pieces, checksum, prob_bits
+    outs, status, sizes, tm = api._decompress_checked(
+        compress_as_float, ts_in, pieces, checksum, prob_bits, bits=True
     )
     _write_ok(pieces, outs, status)
     return status, sizes, tm

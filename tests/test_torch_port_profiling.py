@@ -1,5 +1,5 @@
 """The port's profiler capture and stage ranges
-(``dietgpu_tpu_torch.profiling``) on the CPU.
+(``dietgpu_tpu_torch.profiling``) on the CPU, and one case on the card.
 
 The stage names are the JAX package's, letter for letter: they are read
 with ``ast`` from its ``annotate`` calls and must equal the set that CPU
@@ -17,7 +17,8 @@ import torch
 
 import dietgpu_tpu_torch as port
 from dietgpu_tpu_torch import profiling
-from tools.profile_port import OUTSIDE, read_trace, stage_account
+from dietgpu_tpu_torch.profiling import OUTSIDE, read_trace, stage_account
+from torch_port_helpers import cuda_device  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_STAGED = ("dietgpu_tpu/floatcodec/pallas_codec.py", "dietgpu_tpu/ans/pallas_encode.py")
@@ -124,6 +125,38 @@ def test_ranges_cost_nothing_without_a_profiler():
         assert r.name == "dietgpu.float.split"
     with profiling.trace_annotation("x") as r:
         assert r._range is None
+
+
+def test_nvtx_ranges_only_inside_a_capture(tmp_path, monkeypatch):
+    """A range for card tensors pushes an NVTX range only while a profiler
+    records: outside a capture it costs the host a flag check."""
+    calls = []
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda name: calls.append(("push", name)))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: calls.append(("pop",)))
+    with profiling.annotate("ans.sections", cuda=True):
+        pass
+    assert calls == []
+    profiling.profiler_start(str(tmp_path / "trace"))
+    try:
+        with profiling.annotate("ans.sections", cuda=True):
+            assert calls == [("push", "dietgpu.ans.sections")]
+        with profiling.annotate("ans.assembly"):
+            pass
+    finally:
+        profiling.profiler_stop()
+    assert calls == [("push", "dietgpu.ans.sections"), ("pop",)]
+
+
+@pytest.mark.gpu
+def test_emit_nvtx_turns_the_ranges_on(cuda_device):
+    """Under Nsight Systems' ``emit_nvtx`` the ranges record, NVTX included."""
+    with profiling.annotate("float.split", cuda=True) as r:
+        assert r._range is None
+    with torch.autograd.profiler.emit_nvtx():
+        with profiling.annotate("float.split", cuda=True) as r:
+            assert r._range is not None
+        words = torch.zeros(3 * 4096, dtype=torch.int16, device=cuda_device)
+        port.float_compress_padded(words, 5000, BF16)
 
 
 def test_double_start_and_stop_without_start_raise(tmp_path):

@@ -20,7 +20,11 @@ compared only within one such run. Each child also counts, with
 torch.profiler over 10 compress calls, the CUDA
 runtime calls a compress makes (kernel launches, copies, stream
 synchronisations) and the host ms spent in them: a count that does not
-vary from run to run.
+vary from run to run. Where the checkout has stage ranges
+(``dietgpu_tpu_torch.profiling``), each child also times the A, B and C
+compress with the ranges as they are and with them swapped for a no-op,
+in pairs of calls within the process, where the host's spread between
+processes does not enter.
 
 Prints a line per run and the medians per tree, then one JSON line.
 """
@@ -34,6 +38,7 @@ import time
 from pathlib import Path
 
 ITERS = 20
+RANGE_PAIRS = 1500  # (on, off) pairs of calls of the ranges' timing, per compress
 
 
 def encode_row(timed, data32, length, prob_bits, hist, totals):
@@ -133,6 +138,68 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     return out
 
 
+def ranges_rows(calls):
+    """Each of `calls` (name -> a compress) with the codec's stage ranges
+    as they are ("on") and swapped for a no-op ("off"), in RANGE_PAIRS
+    pairs of synchronised calls, the order within a pair flipped every
+    pair, so that drifts of the host's speed fall on both alike. Returns
+    {name: {on_ms, off_ms, cost, cost_tenths}}: the medians of the calls'
+    host ms, the median of the pairs' differences over off_ms, and that
+    cost in each tenth of the pairs (their spread); None where the
+    checkout has no ranges."""
+    import importlib.util
+
+    import torch
+
+    if importlib.util.find_spec("dietgpu_tpu_torch.profiling") is None:
+        return None
+    from dietgpu_tpu_torch.ans import cuda_encode
+    from dietgpu_tpu_torch.floatcodec import codec
+
+    class off:
+        __slots__ = ()
+
+        def __init__(self, name, cuda=False):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    modes = (("on", codec.annotate), ("off", off))
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    try:
+        for name, fn in calls.items():
+            pairs = []
+            for i in range(RANGE_PAIRS):
+                t = {}
+                for mode, cls in modes if i % 2 == 0 else modes[::-1]:
+                    codec.annotate = cuda_encode.annotate = cls
+                    t[mode] = timed_call(fn)
+                pairs.append((t["on"], t["off"]))
+            off_ms = statistics.median(b for _, b in pairs)
+            tenth = RANGE_PAIRS // 10
+            out[name] = {
+                "on_ms": statistics.median(a for a, _ in pairs), "off_ms": off_ms,
+                "cost": statistics.median(a - b for a, b in pairs) / off_ms,
+                "cost_tenths": [statistics.median(a - b for a, b in pairs[k : k + tenth]) / off_ms
+                                for k in range(0, tenth * 10, tenth)],
+            }
+    finally:
+        codec.annotate = cuda_encode.annotate = modes[0][1]
+    return out
+
+
 def child(root):
     """One timed run of the checkout at `root`; prints one JSON line."""
     import numpy as np
@@ -195,7 +262,8 @@ def child(root):
                 c[0] += 1
                 c[1] += e.cpu_time_total / 1e3
         calls[f"{name} compress"] = {k: [c / 10, ms / 10] for k, (c, ms) in count.items()}
-    print(json.dumps({"ms": out, "runtime_calls": calls}))
+    ranges = ranges_rows({f"{k} compress": fn for k, fn in compress_calls.items()})
+    print(json.dumps({"ms": out, "runtime_calls": calls, "ranges": ranges}))
 
 
 def main():
@@ -218,13 +286,19 @@ def main():
                              capture_output=True, text=True, check=True)
         child_out = json.loads(res.stdout.strip().splitlines()[-1])
         times = child_out["ms"]
-        runs.append({"tree": tree, "ms": times, "runtime_calls": child_out["runtime_calls"]})
+        runs.append({"tree": tree, "ms": times, "runtime_calls": child_out["runtime_calls"],
+                     "ranges": child_out["ranges"]})
         print(f"# {tree:5s}: " + ", ".join(f"{k} {v[0]:.4f} (enqueue {v[1]:.4f})"
                                            for k, v in times.items()) + f" ms ({card})",
               flush=True)
         for k, v in child_out["runtime_calls"].items():
             print(f"#   {k}, per call: " + ", ".join(f"{c:g} {fn} ({ms:.4f} ms of host)"
                                                       for fn, (c, ms) in v.items()), flush=True)
+        for k, v in (child_out["ranges"] or {}).items():
+            print(f"#   {k}, stage ranges on {v['on_ms']:.4f} ms, off {v['off_ms']:.4f} ms "
+                  f"(medians of {RANGE_PAIRS} pairs of calls): cost {100 * v['cost']:+.3f}% "
+                  f"(tenths of the pairs {min(v['cost_tenths']) * 100:+.3f}% to "
+                  f"{max(v['cost_tenths']) * 100:+.3f}%)", flush=True)
     medians = {
         tree: {k: [statistics.median(r["ms"][k][i] for r in runs if r["tree"] == tree)
                    for i in (0, 1)]
@@ -234,6 +308,13 @@ def main():
     for tree, m in medians.items():
         print(f"# median of {tree}: " + ", ".join(f"{k} {v[0]:.4f} (enqueue {v[1]:.4f})"
                                                   for k, v in m.items()) + " ms")
+    for tree in roots:
+        ranged = [r["ranges"] for r in runs if r["tree"] == tree and r["ranges"]]
+        for k in (ranged[0] if ranged else {}):
+            costs = sorted(r[k]["cost"] for r in ranged)
+            print(f"# {tree}, {k}: the stage ranges' cost over its {len(costs)} runs, median "
+                  f"{100 * statistics.median(costs):+.3f}%, from {100 * costs[0]:+.3f}% to "
+                  f"{100 * costs[-1]:+.3f}%")
     print(json.dumps({"card": card, "roots": roots, "runs": runs, "medians": medians}))
     return 0
 

@@ -42,8 +42,8 @@ float.ans_encode, ans.encode_kernel, ans.sections, ans.assembly and their
 less the stages nested in it) and the device ms of the kernels launched
 inside it and in no nested stage; "(outside the stages)" holds the
 kernels launched elsewhere in the call (the histogram, the API's glue).
-``read_trace`` and ``stage_account`` are what chip_smoke.py's `stages`
-line is made with.
+The attribution is ``profiling.stage_account``, with which chip_smoke.py
+makes its `stages` line.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -52,17 +52,14 @@ Run from the root of a checkout on a machine with a CUDA card:
 Prints readable lines, then one JSON line with the numbers.
 """
 
-import gzip
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-STAGE_PREFIX = "dietgpu."
-OUTSIDE = "(outside the stages)"
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from dietgpu_tpu_torch.profiling import STAGE_PREFIX, read_trace, stage_account  # noqa: E402
 
 
 def _under_ranges_only(event) -> bool:
@@ -73,81 +70,6 @@ def _under_ranges_only(event) -> bool:
         p = p.cpu_parent
     return p is None
 
-
-def read_trace(logdir) -> list:
-    """The events of the one trace that ``profiler_stop`` wrote into
-    `logdir` (a Chrome trace, gzipped or not)."""
-    files = sorted(Path(logdir).glob("*.pt.trace.json*"))
-    if len(files) != 1:
-        raise RuntimeError(f"expected one trace in {logdir}, found {[f.name for f in files]}")
-    opener = gzip.open if files[0].suffix == ".gz" else open
-    with opener(files[0], "rt") as f:
-        return json.load(f)["traceEvents"]
-
-
-def stage_account(events) -> tuple:
-    """Attribute a trace's time to the ``dietgpu.*`` stage ranges.
-
-    Returns (rows, launches). rows: {stage name without the prefix: {calls,
-    host_ms, host_self_ms, device_ms, device_self_ms}}, host_ms the sum of
-    the range's lengths, host_self_ms less the stages nested in it,
-    device_ms the device time (kernels, copies, memsets) launched inside
-    it, device_self_ms of that launched in no nested stage; OUTSIDE holds
-    the device events launched in no stage. launches: (device event name,
-    the innermost stage its launch fell in or None, ms) for every device
-    event, matched to its launch (a CUDA runtime or driver call) by the
-    trace's correlation id.
-    """
-    stages = sorted((e for e in events if e.get("cat") == "user_annotation"
-                     and e.get("name", "").startswith(STAGE_PREFIX)),
-                    key=lambda e: (e["ts"], -e["dur"]))
-
-    def innermost(t):
-        """The range containing time t that starts last (the innermost)."""
-        best = None
-        for s in stages:
-            if s["ts"] <= t <= s["ts"] + s["dur"]:
-                best = s
-        return best
-
-    rows = {}
-
-    def row(s):
-        name = OUTSIDE if s is None else s["name"][len(STAGE_PREFIX):]
-        return rows.setdefault(name, {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
-                                      "device_ms": 0.0, "device_self_ms": 0.0})
-
-    parent = {}
-    for i, s in enumerate(stages):  # a range's container comes before it
-        p = None
-        for c in stages[:i]:
-            if c["ts"] + c["dur"] >= s["ts"] + s["dur"]:
-                p = c
-        parent[id(s)] = p
-        r = row(s)
-        r["calls"] += 1
-        r["host_ms"] += s["dur"] / 1e3
-        r["host_self_ms"] += s["dur"] / 1e3
-        if p is not None:
-            row(p)["host_self_ms"] -= s["dur"] / 1e3
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in _LAUNCH_CATS and "correlation" in e.get("args", {})}
-    launches = []
-    for e in events:
-        if e.get("cat") not in _DEVICE_CATS:
-            continue
-        t = launch_ts.get(e.get("args", {}).get("correlation"))
-        s = None if t is None else innermost(t)
-        ms = e["dur"] / 1e3
-        launches.append((e["name"], None if s is None else s["name"][len(STAGE_PREFIX):], ms))
-        row(s)["device_self_ms"] += ms
-        while s is not None:
-            row(s)["device_ms"] += ms
-            s = parent[id(s)]
-    rows.setdefault(OUTSIDE, {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
-                              "device_ms": 0.0, "device_self_ms": 0.0})
-    rows[OUTSIDE]["device_ms"] = rows[OUTSIDE]["device_self_ms"]
-    return rows, launches
 
 MWORDS = 128  # bench.py's size, Mi words
 BATCH, MEMBER_WORDS = 128, 1 << 19  # paths D and E
@@ -171,7 +93,6 @@ def main():
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import dietgpu_tpu_torch as port
     from dietgpu_tpu_torch import api, torch_api
     from dietgpu_tpu_torch import constants as C
@@ -362,7 +283,8 @@ def main():
     from dietgpu_tpu_torch import profiling
 
     # what a stage range costs the host outside a capture (path A compress
-    # enters six, its decompress one, C's encode three)
+    # enters six, its decompress one, C's encode three; `cuda` pushes NVTX
+    # only inside a capture)
     n_ranges = 100000
     range_us = {}
     for nvtx in (False, True):
@@ -370,10 +292,10 @@ def main():
         for _ in range(n_ranges):
             with profiling.annotate("float.split", nvtx):
                 pass
-        range_us["with NVTX" if nvtx else "host only"] = (time.perf_counter() - t0) / n_ranges * 1e6
+        range_us["cuda" if nvtx else "host only"] = (time.perf_counter() - t0) / n_ranges * 1e6
     report["stage range us"] = range_us
-    print(f"# a stage range outside a capture: {range_us['host only']:.4f} us, with NVTX "
-          f"{range_us['with NVTX']:.4f} us; six of them {6 * range_us['with NVTX']:.2f} us "
+    print(f"# a stage range outside a capture: {range_us['host only']:.4f} us, cuda=True "
+          f"{range_us['cuda']:.4f} us; six of them {6 * range_us['cuda']:.2f} us "
           f"against path A compress's {report['compress']['wall_ms'] * 1e3:.1f} us ({card})")
 
     for name in ("compress", "raw encode", "G compress"):
