@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # the full check, about three and a half minutes
+    python3 chip_smoke.py            # the full check, about three minutes
 
 Phases; any failure raises, so the script exits non-zero and prints no
 result line:
@@ -42,7 +42,14 @@ result line:
                B = 513 and 65537, path A's size in uniform words; and
                65537 members (more than a launch's grid y holds) through
                float_compress_batched / float_decompress_batched in bf16
-               and f32 and through both joins;
+               and f32 and through both joins; and split_f32 on its:
+               constant words, alternating exponents and uniformly random
+               words at lengths 0-17, 4095-4097 and 16Ki, alone and in a
+               ragged batch, with and without the checksum, in container
+               mode into rows 8 bytes past a 16-byte boundary whose words
+               past each member's archived ends must keep their -1,
+               batches across the CTAs' shares, B = 513, path B's size in
+               uniform words;
 3. path A   -- bf16, 128Mi words, prob_bits 10, no checksum, inputs made
                exactly as bench.py makes them, through
                float_compress_padded / float_decompress_padded: the launch
@@ -82,7 +89,10 @@ result line:
                api.decompress_data: every archive equals the member's
                single-tensor float_compress_padded archive; then path F's
                members through api.compress_data(False, ...) (path Hr),
-               every archive equal to path F's; each kernel once per call;
+               every archive equal to path F's; and path H's lengths as
+               64 f32 tensors (standard normal, default_rng(1); path Hf),
+               every archive equal to the member's single-tensor archive;
+               each kernel once per call;
    path J   -- the standalone join: path A's bf16 and path B's f32 input
                split and joined back (join_words_packed,
                join_words_packed_f32) at 128Mi words, exact against the
@@ -144,7 +154,9 @@ that runs it: the single paths' rows (split ... decode_f32), the batched
 paths' (split_batched ... decode_raw_batched), which are the same kernels
 at paths D-F's shapes, the split at path H's ragged lengths
 (split_ragged, timed with the lengths on the card, as the compress path
-passes them), and the joins at path J's (join, join_f32).
+passes them), the joins at path J's (join, join_f32), split_f32 on
+uniformly random words at path B's size (split_f32_uniform, path B's
+launches) and in container mode at path Hf's lengths (split_f32_ragged).
 
 Output: progress lines, then a ``{"collectives": {...}}`` JSON line (path
 K's rows, labelled world size 1: at one rank each exchange is a copy on the
@@ -249,6 +261,14 @@ KERNELS = {
         "dietgpu_tpu_torch/csrc/split.cu",
         "dietgpu_tpu/floatcodec/pallas_float.py:83", 12, "H", "split",
     ),
+    "split_f32_uniform": (
+        "dietgpu_tpu_torch/csrc/split_f32.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "B", "split_f32",
+    ),
+    "split_f32_ragged": (
+        "dietgpu_tpu_torch/csrc/split_f32.cu",
+        "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "Hf", "split_f32",
+    ),
     "join": (
         "dietgpu_tpu_torch/csrc/join.cu",
         "dietgpu_tpu/floatcodec/pallas_float.py:209", 3, "J", "join",
@@ -269,12 +289,13 @@ PATH_KERNELS = {
     "G": ("split", "encode", "assembly", "decode"),
     "H": ("split", "encode", "assembly", "decode"),
     "Hr": ("hist", "encode", "assembly", "decode_raw"),
+    "Hf": ("split_f32", "encode", "assembly", "decode_f32"),
     "J": ("split", "join", "split_f32", "join_f32"),
     "L": ("split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
           "decode_raw"),
 }
 # paths whose calls must launch each kernel once
-BATCHED_PATHS = ("D", "E", "F", "G", "H", "Hr", "J")
+BATCHED_PATHS = ("D", "E", "F", "G", "H", "Hr", "Hf", "J")
 
 
 def member_width(lengths):
@@ -1154,6 +1175,95 @@ def phase2_slice7(port, dev):
         f"{BIG_BATCH} members round-trip and join")
 
 
+def uniform_words(dev, shape, seed):
+    """int32 words drawn uniformly (every exponent byte), from a seed."""
+    import torch
+
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def phase2_slice10(port, dev):
+    """The redesigned split_f32 kernel against its plain version, bit for bit
+    (planes, histogram, checksum), on the inputs its design is at risk on:
+    constant words (one exponent), alternating exponents and uniformly
+    random words at member lengths 0-17 around each quad and 16-word group,
+    4095-4097 and Lw, alone with and without the checksum and as one ragged
+    batch; container mode into rows that start 8 bytes past a 16-byte
+    boundary, prefilled with -1, which must survive past each member's
+    archived ends; ragged batches whose members cross the CTAs' shares;
+    B = 513; uniformly random words at path B's 128Mi. Returns the max
+    abs error of the last (the split_f32_uniform row's)."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import _build
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import cuda_float
+
+    log(f"  resources of split_f32: {_build.kernel_resources('split_f32')}")
+    gen = torch.Generator(device=dev).manual_seed(101)
+    Lw = 4 * C.DEFAULT_BLOCK_SIZE
+    edges = [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 4095, 4096, 4097, Lw]
+    B = len(edges)
+
+    def case(what, words, lengths, ck=True):
+        return require_exact(what, zip(
+            cuda_float.split_words_f32_batched_cuda(words, lengths, ck),
+            cuda_float.split_words_f32_batched_plain(words, lengths, ck)))
+
+    def container_case(what, words, lengths, ck=True):
+        Bm, W = words.shape
+        lengths = lengths if isinstance(lengths, list) else [lengths] * Bm
+        wide = torch.full((Bm, 3 * W // 4 + 8), -1, dtype=torch.int32, device=dev)
+        plain = wide.clone()
+        rows = slice(2, 2 + 3 * W // 4)
+        got = cuda_float.split_words_f32_batched_cuda(words, lengths, ck, wide[:, rows])
+        want = cuda_float.split_words_f32_batched_plain(words, lengths, ck, plain[:, rows])
+        require_exact(what, [(got[i], want[i]) for i in (0, 3, 4)] + [(wide, plain)])
+        for m, n in enumerate(lengths):  # past the archived ends, nothing written
+            end = 2 + C.round_up(n, 8) // 2 + C.round_up(n, 16) // 4
+            require(bool((wide[m, end:] == -1).all()) and bool((wide[m, :2] == -1).all()),
+                    f"{what}: member {m} (n={n}) wrote past its archived ends")
+
+    one, big = 0x3F800000, 0x47800000  # 1.0 and 65536.0
+    fills = {
+        "constant": torch.full((B, Lw), one, dtype=torch.int32, device=dev),
+        "alternating exponents": torch.tensor([one, big], dtype=torch.int32, device=dev)
+        .repeat(B * Lw // 2).view(B, Lw),
+        "uniform": torch.randint(-(1 << 31), 1 << 31, (B, Lw), dtype=torch.int32, device=dev,
+                                 generator=gen),
+    }
+    for name, w in fills.items():
+        for n in edges:
+            for ck in (False, True):
+                case(f"split_f32 {name} n={n} ck={ck}", w[:1], n, ck)
+        for ck in (False, True):
+            case(f"split_f32 {name} lengths={edges} ck={ck}", w, edges, ck)
+            container_case(f"split_f32 {name} lengths={edges} ck={ck}, container rows 8 bytes "
+                           "past 16, prefilled with -1", w, edges, ck)
+    rng = np.random.default_rng(10)
+    for Bm, blocks in ((37, 64), (513, 2), (3, 1)):
+        w = torch.randint(-(1 << 31), 1 << 31, (Bm, blocks * 4096), dtype=torch.int32,
+                          device=dev, generator=gen)
+        lens = rng.integers(0, blocks * 4096 + 1, Bm)
+        lens[rng.random(Bm) < 0.2] = 0
+        lens = lens.tolist()
+        case(f"split_f32 {Bm} ragged members of up to {blocks} blocks", w, lens)
+        container_case(f"split_f32 {Bm} ragged members of up to {blocks} blocks, container",
+                       w, lens)
+        case(f"split_f32 {Bm} members of one length", w, blocks * 4096 - 3)
+        container_case(f"split_f32 {Bm} members of one length, container", w, blocks * 4096 - 3)
+    del fills, w
+    n = MWORDS << 20
+    w = uniform_words(dev, (1, n), 10)
+    err = case(f"split_f32 {n} uniform words (path B's size)", w, n, False)
+    del w
+    torch.cuda.empty_cache()
+    log("  split_f32: the same outputs as the plain version on every input")
+    return err
+
+
 def float_batch_path(port, name, ft, words, err):
     """Path D or E: a (B, ...) batch of MEMBER_WORDS words per member
     through float_compress_batched / float_decompress_batched. Fills err
@@ -1429,6 +1539,73 @@ def api_paths(port, bat, words_d, data_f, lengths_f, err):
         "split": (lambda: cuda_float.split_words_batched_cuda(pairs_h, lens_h, BF16,
                                                               lengths_t=lens_t),
                   lambda: cuda_float.split_words_batched_plain(pairs_h, lens_h, BF16)),
+    }
+
+
+def ragged_f32_path(port, lens_h, dev, err):
+    """Path Hf: path H's lengths as 64 ragged f32 tensors (standard normal,
+    default_rng(1)) through api.compress_data / api.decompress_data: each
+    kernel once per call, every output its input, every archive the
+    member's single-tensor archive. Fills err for split_f32_ragged (the
+    kernel in container mode, the lengths on the card, as the compress
+    passes them); returns what phase 4 times."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import api
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    F32 = C.FLOAT_TYPE_FLOAT32
+    rng = np.random.default_rng(1)
+    ts = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev) for n in lens_h]
+    log(f"# phase 3: path Hf, {len(ts)} f32 tensors of {sum(lens_h)} words (path H's lengths) "
+        "through api")
+
+    def run():
+        comp, sizes, _ = api.compress_data(True, ts)
+        rows = [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+        outs, st, osz, _ = api.decompress_data(True, rows, ts)
+        return comp, sizes, outs, st, osz
+
+    (comp, sizes, outs, st, osz), launches = drive(port, "Hf", run)
+    require(st.tolist() == [1] * len(ts) and osz.tolist() == [4 * n for n in lens_h],
+            "path Hf decompress failed its status")
+    require(all(torch.equal(o, t) for o, t in zip(outs, ts)), "path Hf roundtrip differs")
+    del outs
+    single = []
+    for t, n in zip(ts, lens_h):
+        w = torch.zeros(C.round_up(n, C.DEFAULT_BLOCK_SIZE), dtype=torch.int32, device=dev)
+        w[:n] = t.view(torch.int32)
+        a, size = codec.float_compress_padded(w, n, F32)
+        single.append(a[: int(size) // 4].view(torch.uint8))
+    require(sizes.tolist() == [a.numel() for a in single], "path Hf sizes differ")
+    require_exact(f"path Hf archives vs {len(ts)} single-tensor kernel calls",
+                  [(comp[b, :s], single[b]) for b, s in enumerate(sizes.tolist())])
+    del single, comp
+    words = torch.zeros((len(ts), member_width(lens_h)), dtype=torch.int32, device=dev)
+    for m, t in enumerate(ts):
+        words[m, : lens_h[m]] = t.view(torch.int32)
+    del ts
+    lens_t = torch.tensor(lens_h, dtype=torch.int64, device=dev)
+    R = codec.float_archive_buffer_bytes(F32, words.shape[1]) // 4
+    arcs, plain = (torch.zeros((len(lens_h), R), dtype=torch.int32, device=dev) for _ in "kp")
+    got = cuda_float.split_words_f32_batched_cuda(words, lens_h, False, arcs[:, 4:], lens_t)
+    want = cuda_float.split_words_f32_batched_plain(words, lens_h, False, plain[:, 4:])
+    err["split_f32_ragged"] = require_exact(
+        "split_f32_ragged, path Hf shape, container mode",
+        [(got[i], want[i]) for i in (0, 3, 4)] + [(arcs, plain)])
+    del plain, got, want
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches,
+        "split": (lambda: cuda_float.split_words_f32_batched_cuda(words, lens_h, False,
+                                                                  arcs[:, 4:], lens_t),
+                  lambda: cuda_float.split_words_f32_batched_plain(words, lens_h, False,
+                                                                   arcs[:, 4:])),
+        "work": (4 * sum(lens_h) + len(lens_h) * (words.shape[1] + 4 * 256)
+                 + sum(2 * C.round_up(n, 8) + C.round_up(n, 16) for n in lens_h),
+                 sum(lens_h)),
     }
 
 
@@ -2161,6 +2338,7 @@ def main():
     phase2_slice5(port, dev)
     phase2_slice6(port, dev)
     phase2_slice7(port, dev)
+    err_uniform = phase2_slice10(port, dev)
     del x, words, w, ka, pa, bad, rare, data
     torch.cuda.empty_cache()
 
@@ -2385,11 +2563,14 @@ def main():
         f"{sum(lengths_f)} bytes in [{RAW_CAP // 4}, {RAW_CAP}] each, prob_bits 10")
     bat["F"] = raw_batch_path(port, data_f, lengths_f, err)
     gh = api_paths(port, bat, words_d, data_f, lengths_f, err)
+    hf = ragged_f32_path(port, gh["H"][1], dev, err)
+    err["split_f32_uniform"] = err_uniform
 
     launches = {}
     path_launches = {"A": launches_a, "B": launches_b, "C": launches_c, "J": launches_j,
                      **{p: st["launches"] for p, st in bat.items()},
-                     "G": gh["G"][-1], "H": gh["H"][-1], "Hr": gh["Hr"][-1]}
+                     "G": gh["G"][-1], "H": gh["H"][-1], "Hr": gh["Hr"][-1],
+                     "Hf": hf["launches"]}
     for k, (_, _, _, path, kernel) in KERNELS.items():
         launches[k] = path_launches[path][kernel]
 
@@ -2555,8 +2736,15 @@ def main():
                          RAGGED_MEMBERS * member_width(lens_h)),
         "join": (4 * n, n),
         "join_f32": (8 * n, n),
+        # split_f32 on uniformly random words at path B's size, and in
+        # container mode at path H's lengths (each member's words read, its
+        # exponent plane at full width, its low and high planes to their
+        # archived ends)
+        "split_f32_uniform": (8 * Lw + 4 * 256, Lw),
+        "split_f32_ragged": hf["work"],
     }
     wb = inputs_b[0]
+    wu = uniform_words(dev, (1, n), 10)  # phase2_slice10's 128Mi uniform words
     runs = {
         "split": (lambda: cuda_float.split_words_batched_cuda(pairs[None], n, ft),
                   lambda: cuda_float.split_words_plain(pairs, n, ft)),
@@ -2589,6 +2777,9 @@ def main():
         "join_f32": (lambda: cuda_float.join_words_f32_cuda(e32_j[None], lo_j[None], hi_j[None]),
                      lambda: cuda_float.join_words_f32_plain(e32_j[None], lo_j[None],
                                                              hi_j[None])),
+        "split_f32_uniform": (lambda: cuda_float.split_words_f32_batched_cuda(wu, n),
+                              lambda: cuda_float.split_words_f32_plain(wu[0], n)),
+        "split_f32_ragged": hf["split"],
     }
     # one torch call computing the same function, where there is one
     library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}
@@ -2611,6 +2802,8 @@ def main():
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
+    del runs, wu, hf
+    torch.cuda.empty_cache()
 
     # ---- 5. path L: a GPT-2 XL checkpoint; path A's stages ----
     ckpt = checkpoint_path(port, dev, card, inputs[0], arc, size)

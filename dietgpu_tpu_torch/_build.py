@@ -49,7 +49,7 @@ _ENTRY = {
     ),
     "split_f32": (
         "split_f32", "dtt_split_f32",
-        (_VP, _LL, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
+        (_VP, _LL, _LL, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
     "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _LL, _VP, _VP, _LL)),
     "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)),
@@ -71,6 +71,7 @@ KERNELS = tuple(_ENTRY)
 # its resources (cudaFuncGetAttributes and the occupancy at its launch shape)
 _RESOURCES = {
     "split": ("split", "dtt_split_resources", 0),
+    "split_f32": ("split_f32", "dtt_split_f32_resources", 0),
     "hist": ("hist", "dtt_hist_resources", 0),
     "encode": ("encode", "dtt_encode_resources", 0),
     "decode": ("decode", "dtt_decode_resources", 0),

@@ -1,5 +1,5 @@
-// The exact byte histogram of hist.cu and split.cu, and the division of a
-// batch's work over one grid that both use.
+// The exact byte histogram of hist.cu, split.cu and split_f32.cu, and the
+// division of a batch's work over one grid that they use.
 //
 // Histogram: each CTA keeps 32 copies of the 256 bins in shared memory, bin
 // b of copy c at word 32 b + c, and lane l of every warp counts into copy l.
@@ -10,12 +10,12 @@
 // When a CTA leaves a member it folds the copies into the member's global
 // row, one atomic add per nonzero bin, and resets them.
 //
-// Division of work: the items of B members (16-byte groups of bytes, or of
-// words) form one index space, and CTA i takes the i-th contiguous share of
-// it. A CTA finds the members its share touches by a block-wide prefix of
-// the members' item counts, kThreads members a round. A ragged batch costs
-// what its items cost; the longest member no longer sets the time, and the
-// grid has no member dimension.
+// Division of work: the items of B members (16-byte groups of bytes or of
+// words, or tiles of them) form one index space, and CTA i takes the i-th
+// contiguous share of it. A CTA finds the members its share touches by a
+// block-wide prefix of the members' item counts, kThreads members a round.
+// A ragged batch costs what its items cost; the longest member no longer
+// sets the time, and the grid has no member dimension.
 
 #pragma once
 

@@ -228,7 +228,9 @@ def split_words_f32_batched_cuda(words, length, with_checksum=False, planes_out=
     """Launch ``csrc/split_f32.cu``, one launch for all B rows; same
     contract as :func:`split_words_f32_batched_plain`. With `planes_out`
     the kernel runs in its container mode, each member's high plane at the
-    offset its own length gives."""
+    offset its own length gives. Ragged lengths go to the kernel as
+    `lengths_t`, or as a device copy made here; the kernel reads no word
+    past a member's length."""
     if words.dim() != 2:
         raise ValueError("split f32: a batch is (B, Lw) int32 words")
     Lw = _check_f32(words[0], 0)
@@ -250,9 +252,8 @@ def split_words_f32_batched_cuda(words, length, with_checksum=False, planes_out=
     cks = torch.zeros(B, dtype=torch.int32, device=dev)
     _build.launch(
         "split_f32", words.data_ptr(), B, Lw // 4, n, layout.data_ptr(n_t),
-        exp32.data_ptr(),
-        lo_ptr, hi_ptr, hist.data_ptr(), cks.data_ptr() if with_checksum else None,
-        words.shape[1], Lw // 4, stride,
+        sum((x + 127) // 128 for x in lengths), exp32.data_ptr(), lo_ptr, hi_ptr, hist.data_ptr(),
+        cks.data_ptr() if with_checksum else None, words.shape[1], Lw // 4, stride,
     )
     return exp32, lo32, hi32, hist, cks
 

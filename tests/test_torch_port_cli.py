@@ -12,8 +12,10 @@ subprocess runs ``python -m dietgpu_tpu_torch.cli`` as a smoke test.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -27,11 +29,40 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FT = {"f16": 1, "bf16": 2, "f32": 3}
 
 
+def _wait_until_settled(path, timeout=60.0, poll=0.25, still=1.0):
+    """Wait (up to `timeout` seconds) until `path` exists and its size has
+    not changed for `still` seconds."""
+    deadline = time.monotonic() + timeout
+    last, held = None, 0.0
+    while time.monotonic() < deadline:
+        try:
+            size = os.path.getsize(path)
+        except OSError:  # not there yet, or being replaced
+            size = None
+        held = held + poll if size is not None and size == last else 0.0
+        if held >= still:
+            return
+        last = size
+        time.sleep(poll)
+
+
 @pytest.fixture
 def jcli():
-    """The JAX CLI, which needs the native host codec."""
+    """The JAX CLI, which needs the native host codec.
+
+    Test processes that start together may each build the codec's library
+    into the same file, and one that loads it while another still writes it
+    keeps the load error for good. So where the library did not load but
+    can be built (its source and g++ are there), wait for the file to stop
+    changing, clear the kept error and load it once more; skip only if that
+    fails too."""
     if not hostcodec.available():
-        pytest.skip("native host codec unavailable")
+        if not (os.path.exists(hostcodec._SRC) and shutil.which("g++")):
+            pytest.skip("native host codec unavailable (no source or no g++)")
+        _wait_until_settled(hostcodec._SO)
+        hostcodec._load_error = None
+        if not hostcodec.available():
+            pytest.skip(f"native host codec unavailable: {hostcodec._load_error!r}")
     from dietgpu_tpu import cli
 
     return cli

@@ -7,6 +7,16 @@ decode the JAX archives and the golden fixture, and be decoded by the JAX
 codec; once, the split and the archive are also held against the Pallas
 path in interpret mode. Tolerance 0 throughout: the codec is lossless and
 its archive format fixed.
+
+The f32 split's plain version is also held against the JAX split on the
+inputs the split kernel's design is at risk on: constant words (one
+exponent), alternating exponents and uniformly random words (every
+exponent byte) at the member lengths around a quad, a 16-word group and a
+block, alone, as one ragged batch, and into strided container rows whose
+words past the archived plane ends must keep their contents; and against
+``split_words_pallas_f32`` in interpret mode on uniform and alternating
+words. The tests marked `gpu` hold the kernel against the plain version
+on the card on the same inputs.
 """
 
 import os
@@ -22,8 +32,8 @@ from dietgpu_tpu.floatcodec import codec as jcodec
 from dietgpu_tpu.floatcodec import split as jsplit
 
 import dietgpu_tpu_torch as port
+from dietgpu_tpu_torch import _build, interop
 from dietgpu_tpu_torch import constants as C
-from dietgpu_tpu_torch import interop
 from dietgpu_tpu_torch.ans import cuda_decode, layout
 from dietgpu_tpu_torch.floatcodec import codec, cuda_float, split
 from torch_port_helpers import cuda_device, interpret_pallas  # noqa: F401
@@ -248,3 +258,165 @@ def test_f32_codec_on_card_matches_cpu(cuda_device):
     assert arc.is_cuda
     assert torch.equal(arc.cpu(), port.float_compress(x, use_checksum=True, device="cpu"))
     assert torch.equal(port.float_decompress(arc).cpu(), x)
+
+
+# ---- the f32 split on the inputs its kernel's design is at risk on ----
+
+SPLIT_LW = 4 * C.DEFAULT_BLOCK_SIZE
+SPLIT_EDGES = [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 4095, 4096, 4097, SPLIT_LW]
+FILLS = ("constant", "alternating", "uniform")
+
+
+def _fill(kind, rows, seed, lw=SPLIT_LW):
+    """(rows, lw) uint32 f32 words: all 1.0, 1.0 and 65536.0 alternating
+    (two exponents), or uniformly random (every exponent byte)."""
+    if kind == "constant":
+        return np.full((rows, lw), 0x3F800000, np.uint32)
+    if kind == "alternating":
+        return np.tile(np.array([0x3F800000, 0x47800000], np.uint32), (rows, lw // 2))
+    return np.random.default_rng(seed).integers(0, 1 << 32, (rows, lw), dtype=np.uint64).astype(
+        np.uint32)
+
+
+def _jax_split_f32(w, n):
+    """The JAX package's f32 split of the first n words of w: exponent,
+    low-u16 and high bytes (zero past n), the exponent histogram of the
+    first n words and their folded XOR checksum, as numpy."""
+    wz = w.copy()
+    wz[n:] = 0
+    comp, (lo, hi) = _jsplit(jnp.asarray(wz), F32)
+    comp = np.asarray(comp)
+    cks = int(np.bitwise_xor.reduce(wz[:n].view(np.uint8))) if n else 0
+    return comp, np.asarray(lo), np.asarray(hi), np.bincount(comp[:n], minlength=256), cks
+
+
+def _check_member(out, m, w, n, ck):
+    """Member m of split_words_f32_batched_plain's output against the JAX
+    split of w at length n (the checksum 0 without `ck`)."""
+    exp32, lo32, hi32, hist, cks = out
+    comp, lo, hi, jhist, jcks = _jax_split_f32(w, n)
+    msg = f"member {m} (n = {n})"
+    np.testing.assert_array_equal(exp32[m].numpy().view(np.uint8), comp, err_msg=msg)
+    np.testing.assert_array_equal(lo32[m].numpy().view(np.uint16), lo, err_msg=msg)
+    np.testing.assert_array_equal(hi32[m].numpy().view(np.uint8), hi, err_msg=msg)
+    np.testing.assert_array_equal(hist[m].numpy(), jhist, err_msg=msg)
+    assert int(np.uint32(int(cks[m]) & 0xFFFFFFFF)) == (jcks if ck else 0), msg
+
+
+@pytest.mark.parametrize("ck", [False, True])
+@pytest.mark.parametrize("n", SPLIT_EDGES)
+@pytest.mark.parametrize("kind", FILLS)
+def test_f32_split_plain_matches_jax_at_edge_lengths(kind, n, ck):
+    """One member at each edge length, with and without the checksum."""
+    w = _fill(kind, 1, 200 + n)
+    out = cuda_float.split_words_f32_batched_plain(interop.words_from_numpy(w), n, ck)
+    _check_member(out, 0, w[0], n, ck)
+
+
+@pytest.mark.parametrize("kind", FILLS)
+def test_f32_split_plain_ragged_batch_matches_jax(kind):
+    """The edge lengths as one ragged batch."""
+    w = _fill(kind, len(SPLIT_EDGES), 300)
+    out = cuda_float.split_words_f32_batched_plain(interop.words_from_numpy(w), SPLIT_EDGES, True)
+    for m, n in enumerate(SPLIT_EDGES):
+        _check_member(out, m, w[m], n, True)
+
+
+@pytest.mark.parametrize("kind", FILLS)
+def test_f32_split_plain_into_strided_container_rows(kind):
+    """Container mode into rows that start 8 bytes past a 16-byte boundary,
+    prefilled with -1: each member's archived low plane, then its archived
+    high plane, equal the JAX split's; every word past them, and before
+    the row's start, keeps its -1."""
+    B = len(SPLIT_EDGES)
+    w = _fill(kind, B, 400)
+    wide = torch.full((B, 3 * SPLIT_LW // 4 + 8), -1, dtype=torch.int32)
+    exp32, lo32, hi32, hist, cks = cuda_float.split_words_f32_batched_plain(
+        interop.words_from_numpy(w), SPLIT_EDGES, True, wide[:, 2 : 2 + 3 * SPLIT_LW // 4])
+    assert lo32.data_ptr() == hi32.data_ptr() == wide[:, 2:].data_ptr()
+    for m, n in enumerate(SPLIT_EDGES):
+        comp, lo, hi, jhist, jcks = _jax_split_f32(w[m], n)
+        k, h = C.round_up(n, 8) // 2, C.round_up(n, 16) // 4
+        row = wide[m].numpy()
+        np.testing.assert_array_equal(row[2 : 2 + k].view(np.uint16), lo[: 2 * k])
+        np.testing.assert_array_equal(row[2 + k : 2 + k + h].view(np.uint8), hi[: 4 * h])
+        assert (row[:2] == -1).all() and (row[2 + k + h :] == -1).all(), f"n = {n}"
+        np.testing.assert_array_equal(exp32[m].numpy().view(np.uint8), comp)
+        np.testing.assert_array_equal(hist[m].numpy(), jhist)
+        assert int(np.uint32(int(cks[m]) & 0xFFFFFFFF)) == jcks
+
+
+@pytest.mark.parametrize("kind", ["uniform", "alternating"])
+def test_f32_split_plain_matches_pallas_interpret_at_risky_words(interpret_pallas, kind):
+    """split_words_pallas_f32 on the same words, zero past n, with its
+    padded tile and the words past n taken out of bin 0."""
+    from dietgpu_tpu.floatcodec import pallas_float as pf
+
+    Lw, n = 4096, 4093
+    w = _fill(kind, 1, 500, Lw)[0]
+    w[n:] = 0
+    pexp, plo, phi, phist, pcks = pf.split_words_pallas_f32(jnp.asarray(w), with_cksum=True)
+    exp32, lo32, hi32, hist, cks = cuda_float.split_words_f32_plain(
+        interop.words_from_numpy(w), n, True)
+    for got, want, k in ((exp32, pexp, Lw // 4), (lo32, plo, Lw // 2), (hi32, phi, Lw // 4)):
+        np.testing.assert_array_equal(
+            interop.words_to_numpy(got), np.asarray(want)[:k].view(np.uint32)
+        )
+    want = np.asarray(phist).astype(np.int64)
+    want[0] -= pf.split_total_words_f32(Lw) - n
+    np.testing.assert_array_equal(hist.numpy(), want)
+    assert int(cks) == int(pcks)
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _container_same(words, lengths, ck):
+    """The kernel and the plain version into strided rows prefilled with -1:
+    the same outputs and the same rows, words past the archived ends
+    included."""
+    B, W = words.shape
+    wide = torch.full((B, 3 * W // 4 + 8), -1, dtype=torch.int32, device=words.device)
+    plain = wide.clone()
+    rows = slice(2, 2 + 3 * W // 4)
+    got = cuda_float.split_words_f32_batched_cuda(words, lengths, ck, wide[:, rows])
+    want = cuda_float.split_words_f32_batched_plain(words, lengths, ck, plain[:, rows])
+    _same([got[i] for i in (0, 3, 4)], [want[i] for i in (0, 3, 4)])
+    assert torch.equal(wide, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", FILLS)
+def test_f32_split_kernel_on_card_at_risky_words(cuda_device, kind):
+    """Constant, alternating and uniform words at each edge length alone
+    and as one ragged batch, with and without the checksum, one launch a
+    call, and in container mode into strided rows."""
+    w = interop.words_from_numpy(_fill(kind, len(SPLIT_EDGES), 600), cuda_device)
+    for ck in (False, True):
+        for n in SPLIT_EDGES:
+            _same(cuda_float.split_words_f32_batched_cuda(w[:1], n, ck),
+                  cuda_float.split_words_f32_batched_plain(w[:1], n, ck))
+        _build.reset_kernel_launches()
+        got = cuda_float.split_words_f32_batched_cuda(w, SPLIT_EDGES, ck)
+        assert _build.kernel_launches()["split_f32"] == 1
+        _same(got, cuda_float.split_words_f32_batched_plain(w, SPLIT_EDGES, ck))
+        _container_same(w, SPLIT_EDGES, ck)
+
+
+@pytest.mark.gpu
+def test_f32_split_kernel_on_card_many_members(cuda_device):
+    """513 ragged members (more than one round of the kernel's member
+    scan), many empty or short, and 37 members of up to 64 blocks whose
+    quads cross the CTAs' shares; plain rows and container rows."""
+    rng = np.random.default_rng(14)
+    for B, blocks in ((513, 2), (37, 64)):
+        lw = blocks * C.DEFAULT_BLOCK_SIZE
+        lens = rng.integers(0, lw + 1, B)
+        lens[rng.random(B) < 0.2] = 0
+        lens = lens.tolist()
+        w = interop.words_from_numpy(_fill("uniform", B, B, lw), cuda_device)
+        _same(cuda_float.split_words_f32_batched_cuda(w, lens, True),
+              cuda_float.split_words_f32_batched_plain(w, lens, True))
+        _container_same(w, lens, True)

@@ -13,7 +13,8 @@ calls each: the CUDA-event ms per call, and the host's enqueue ms per call
 (until the call returns, before synchronising), where the glue between the
 kernels shows; and the split, hist, encode and decode kernels alone at
 chip_smoke.py's rows of paths A-F, split_f32 at path B's (also on
-uniformly random words), the ragged split at path H's (on normal and on
+uniformly random words) and in container mode at path Hf's ragged
+lengths, the ragged split at path H's (on normal and on
 uniformly random words) and the f32 join at path J's, called as the main
 paths call them. Two versions are
 compared only within one such run. Each child also counts, with
@@ -51,6 +52,29 @@ def encode_row(timed, data32, length, prob_bits, hist, totals):
     return timed(lambda: cuda_encode.encode_blocks_batched_cuda(data32, length, prob_bits, tables))
 
 
+def split_f32_ragged_row(timed):
+    """The f32 split at path H's 64 ragged lengths (chip_smoke.py's path
+    Hf: standard-normal f32 words from default_rng(1)), in container mode
+    with the lengths on the card, as float_compress_batched calls it."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch.floatcodec import codec, cuda_float
+
+    lens = np.random.default_rng(0).integers(1 << 19, (1 << 21) + 1, 64).tolist()
+    width = -(-max(lens) // 4096) * 4096
+    rng = np.random.default_rng(1)
+    words = torch.zeros((64, width), dtype=torch.int32, device="cuda")
+    for m, k in enumerate(lens):
+        words[m, :k] = torch.from_numpy(rng.standard_normal(k).astype(np.float32)
+                                        .view(np.int32)).cuda()
+    lens_t = torch.tensor(lens, dtype=torch.int64, device="cuda")
+    arcs = torch.zeros((64, codec.float_archive_buffer_bytes(3, width) // 4), dtype=torch.int32,
+                       device="cuda")
+    return timed(lambda: cuda_float.split_words_f32_batched_cuda(words, lens, False, arcs[:, 4:],
+                                                                 lens_t))
+
+
 def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     """The split, hist, encode, decode, split_f32, ragged split and f32 join
     kernels alone at chip_smoke.py's rows: A, B, C, J (the inputs above),
@@ -73,6 +97,7 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     out["kernel split_f32 (B, uniform words)"] = timed(
         lambda: cuda_float.split_words_f32_batched_cuda(uniform, n))
     del uniform
+    out["kernel split_f32_ragged (Hf)"] = split_f32_ragged_row(timed)
     e32, lo, hi, _, _ = cuda_float.split_words_f32_batched_cuda(f32[None], n)
     out["kernel join_f32 (J)"] = timed(lambda: cuda_float.join_words_f32_cuda(e32, lo, hi))
     del exp32, e32, lo, hi
