@@ -93,6 +93,25 @@ result line:
                64 f32 tensors (standard normal, default_rng(1); path Hf),
                every archive equal to the member's single-tensor archive;
                each kernel once per call;
+   path Gs  -- the split, stride and info forms of both front-ends at
+               path G's width: compress_data_split_size of one flat tensor
+               of path D's 64Mi words into 128 splits through api and
+               torch_api, every archive path D's; decompress_data_split_size
+               through api, and through torch_api in place into a contiguous
+               t_out, into the (8192, 8192).t() of a bf16 tensor that is not
+               contiguous, prefilled with a sentinel, and the same with one
+               member's archive swapped for a larger one (status 0 for it, 1
+               elsewhere, all of t_out still the sentinel); compress_data_stride
+               / decompress_data_stride on the (128, 512Ki) rows with sizes
+               alternating 512Ki and 384Ki (every archive the row's
+               single-tensor archive, rows zero past their sizes), and with
+               one row's archive swapped to fail it; the raw stride form on
+               path F's rows (path F's archives); get_compressed_info_device
+               on both sets of archives against get_compressed_info and the
+               headers, and the max_* queries. Each call launches each of its
+               kernels once and no other. The split and stride calls are timed
+               beside path G's torch_api calls on the same words (the
+               ``front_end`` line);
    path J   -- the standalone join: path A's bf16 and path B's f32 input
                split and joined back (join_words_packed,
                join_words_packed_f32) at 128Mi words, exact against the
@@ -165,7 +184,9 @@ card, so the times are the codec's cost, not a wire saving), a
 save and load ms and GB/s beside torch.save's and torch.load's, the
 launches of one save and load, the CLI's seconds), a ``{"stages": {...}}``
 line (path A's stages: host ms, self and inclusive, and the device ms of
-the kernels launched inside each), a ``{"kernels": [...]}`` JSON line, the card's
+the kernels launched inside each), a ``{"front_end": {...}}`` line (paths
+G and Gs: ms and GB/s of each split, stride and path G call), a
+``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX, nor
 ml_dtypes.
@@ -173,6 +194,7 @@ ml_dtypes.
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1609,6 +1631,211 @@ def ragged_f32_path(port, lens_h, dev, err):
     }
 
 
+def launch_once(port, what, fn, kernels):
+    """Run fn with the launch counters at 0: each kernel of `kernels` must
+    launch exactly once in it, and no other kernel."""
+    import torch
+
+    torch.cuda.synchronize()
+    port.reset_kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in port.kernel_launches().items() if v}
+    log(f"  launches of {what}: {got}")
+    require(got == {k: 1 for k in kernels}, f"{what}: launches {got}, want each of {kernels} once")
+    return out
+
+
+def front_end_forms(port, bat, gh, words_d, data_f, lengths_f, card):
+    """Path Gs: the split, stride and info forms of both front-ends at path
+    G's width (path D's 128 bf16 members of 512Ki words, here one flat
+    tensor or the rows of one (128, 512Ki) tensor) and on path F's raw rows,
+    each call launching each of its kernels once. Returns the timing rows,
+    each beside path G's calls on the same words."""
+    import torch
+
+    from dietgpu_tpu_torch import api, torch_api
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.floatcodec import codec
+
+    BF16 = C.FLOAT_TYPE_BFLOAT16
+    n, B, dev = MEMBER_WORDS, BATCH, words_d.device
+    flat = words_d.view(torch.bfloat16).view(-1)
+    splits = [n] * B
+    compress_k, raw_k = ("split", "encode", "assembly"), ("hist", "encode", "assembly")
+    d_arcs, d_sizes = bat["D"]["arcs"].view(torch.uint8), bat["D"]["sizes"].tolist()
+    fail = B - 3  # the member (split or row) whose archive is swapped for a larger one
+    sentinel = -0x5556  # 0xAAAA
+
+    def rows(comp, sizes):
+        return [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+
+    def same_archives(what, comp, sizes, ref, ref_sizes):
+        require(sizes.tolist() == list(ref_sizes), f"{what}: sizes differ")
+        require_exact(what, [(comp[b, :s], ref[b][:s]) for b, s in enumerate(sizes.tolist())])
+
+    def strided_t_out():
+        side = math.isqrt(B * n)  # (8192, 8192).t(): every element, not contiguous
+        require(side * side == B * n, "path Gs: the strided output must hold the batch")
+        return torch.full((side, side), sentinel, dtype=torch.int16, device=dev).view(
+            torch.bfloat16).t()
+
+    log(f"# phase 3: path Gs, the split, stride and info forms of api and torch_api: "
+        f"{B} x {n} bf16 words, path F's {len(lengths_f)} raw rows")
+    # ---- split forms ----
+    for front in (api, torch_api):
+        comp, sizes, _ = launch_once(
+            port, f"{front.__name__}.compress_data_split_size",
+            lambda: front.compress_data_split_size(True, flat, splits), compress_k)
+        same_archives(f"{front.__name__}.compress_data_split_size archives vs path D's",
+                      comp, sizes, d_arcs, d_sizes)
+    arcs = rows(comp, sizes)
+    flat_out, st, sz, _ = launch_once(
+        port, "api.decompress_data_split_size",
+        lambda: api.decompress_data_split_size(True, arcs, flat, splits), ("decode",))
+    require(st.tolist() == [1] * B and sz.tolist() == [2 * n] * B
+            and torch.equal(flat_out.view(torch.int16), flat.view(torch.int16)),
+            "api.decompress_data_split_size differs")
+    outs = {"contiguous": torch.full_like(flat.view(torch.int16), sentinel).view(torch.bfloat16),
+            "not contiguous": strided_t_out()}
+    for kind, t_out in outs.items():
+        st, sz, _ = launch_once(
+            port, f"torch_api.decompress_data_split_size into a {kind} t_out",
+            lambda: torch_api.decompress_data_split_size(True, arcs, t_out, splits), ("decode",))
+        require(st.tolist() == [1] * B and sz.tolist() == [2 * n] * B
+                and t_out.is_contiguous() == (kind == "contiguous")
+                and torch.equal(t_out.view(torch.int16), flat.view(torch.int16).view(t_out.shape)),
+                f"torch_api.decompress_data_split_size into a {kind} t_out differs")
+        log(f"  decoded bits of the {kind} t_out equal the input's")
+    big = api.compress_data_simple(True, [flat[: n + C.DEFAULT_BLOCK_SIZE]])[0]
+    t_out = strided_t_out()
+    st, sz, _ = launch_once(
+        port, "torch_api.decompress_data_split_size with a failing member",
+        lambda: torch_api.decompress_data_split_size(
+            True, arcs[:fail] + [big] + arcs[fail + 1:], t_out, splits), ("decode",))
+    require(st.tolist() == [1] * fail + [0] + [1] * (B - fail - 1)
+            and sz[fail] == 2 * (n + C.DEFAULT_BLOCK_SIZE),
+            "a failing member's status or size differs")
+    require(bool((t_out.view(torch.int16) == sentinel).all()),
+            "a split of t_out was written though a member failed")
+    log(f"  member {fail} failed: status 0, all of t_out still the sentinel")
+    del outs, t_out, flat_out
+
+    # ---- stride forms: rows of 512Ki and 384Ki words; F's raw rows ----
+    x2d = flat.view(B, n)
+    lens = [n if b % 2 == 0 else 3 * n // 4 for b in range(B)]
+    comp_s, sizes_s, _ = launch_once(port, "api.compress_data_stride",
+                                     lambda: api.compress_data_stride(True, x2d, lens), compress_k)
+    single, single_sizes = [], []
+    for b, m in enumerate(lens):
+        w = torch.zeros(C.round_up(m, C.DEFAULT_BLOCK_SIZE), dtype=torch.int16, device=dev)
+        w[:m] = x2d[b, :m].view(torch.int16)
+        a, size = codec.float_compress_padded(w, m, BF16)
+        single.append(a.view(torch.uint8))
+        single_sizes.append(int(size))
+    same_archives(f"api.compress_data_stride archives vs {B} single-tensor kernel calls",
+                  comp_s, sizes_s, single, single_sizes)
+    del single
+    rows_s = rows(comp_s, sizes_s)
+    keep = torch.arange(n, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    want = torch.where(keep, x2d.view(torch.int16), 0)
+    out2d, st, sz, _ = launch_once(
+        port, "api.decompress_data_stride",
+        lambda: api.decompress_data_stride(True, rows_s, B, n, torch.bfloat16, lens), ("decode",))
+    require(st.tolist() == [1] * B and sz.tolist() == [2 * m for m in lens]
+            and torch.equal(out2d.view(torch.int16), want), "api.decompress_data_stride differs")
+    out2d, st, _, _ = launch_once(
+        port, "api.decompress_data_stride with a failing row",
+        lambda: api.decompress_data_stride(True, rows_s[:fail] + [big] + rows_s[fail + 1:], B, n,
+                                           torch.bfloat16, lens), ("decode",))
+    others = torch.arange(B, device=dev) != fail
+    require(st.tolist() == [1] * fail + [0] + [1] * (B - fail - 1)
+            and torch.equal(out2d.view(torch.int16)[others], want[others]),
+            "a failing row's status, or another row, differs")
+    log(f"  row {fail} failed: status 0, every other row exact")
+    del out2d, want, keep
+    comp_r, sizes_r, _ = launch_once(
+        port, "api.compress_data_stride (raw)",
+        lambda: api.compress_data_stride(False, data_f, lengths_f), raw_k)
+    same_archives("api.compress_data_stride (raw) archives vs path F's (each its single-tensor "
+                  "archive)", comp_r, sizes_r, bat["F"]["arcs"].view(torch.uint8),
+                  bat["F"]["sizes"].tolist())
+    rows_r = rows(comp_r, sizes_r)
+    out_r, st, sz, _ = launch_once(
+        port, "api.decompress_data_stride (raw)",
+        lambda: api.decompress_data_stride(False, rows_r, len(lengths_f), RAW_CAP, torch.uint8,
+                                           lengths_f), ("decode_raw",))
+    require(st.tolist() == [1] * len(lengths_f) and sz.tolist() == lengths_f
+            and torch.equal(out_r, data_f), "api.decompress_data_stride (raw) differs")
+    log("  raw stride rows round-trip exactly (zeros past each length)")
+    del out_r
+
+    # ---- info and sizes ----
+    for ca, comp_i, arcs_i, want_size in ((True, comp, arcs, [n] * B),
+                                          (False, comp_r, rows_r, lengths_f)):
+        dev_info = launch_once(port, f"api.get_compressed_info_device({ca})",
+                               lambda: api.get_compressed_info_device(ca, comp_i), ())
+        host = api.get_compressed_info(ca, arcs_i)
+        second = "float_type" if ca else "prob_bits"
+        # the device's key -> the host's (a raw archive's size is its byte count)
+        keys = {"size": "size" if ca else "total_uncompressed_words", second: second,
+                "checksum": "checksum"}
+        head = {k: [h[hk] for h in host] for k, hk in keys.items()}
+        require(all(v.device == comp_i.device for v in dev_info.values()),
+                "header info left the archives' device")
+        require({k: dev_info[k].tolist() for k in head} == head and head["size"] == want_size
+                and head[second] == [BF16 if ca else 10] * len(arcs_i)
+                and bool(dev_info["valid"].all()), f"archive info ({ca}) differs")
+    ts = list(x2d)
+    bound = api.max_float_compressed_size(torch.bfloat16, n)
+    require(api.max_float_compressed_output_size(ts) == (B, bound)
+            and torch_api.max_float_compressed_output_size(ts) == (bound, B)
+            and max(sizes.tolist()) <= bound
+            and api.max_any_compressed_output_size(rows_r) == (len(rows_r), max(
+                api.max_any_compressed_size(a.numel()) for a in rows_r))
+            and max(sizes_r.tolist()) <= api.max_any_compressed_size(max(lengths_f)),
+            "the max_* size queries differ")
+    log("  header info on the card equals the host's and the headers; max_* bounds hold")
+
+    # ---- timing, beside path G's calls on the same words ----
+    ts_g, outs_g, comp_g, sizes_g, _ = gh["G"]
+    rows_g = rows(comp_g, sizes_g)
+    t_c, t_nc = (torch.empty_like(flat), strided_t_out())
+    calls = {
+        "G torch_api.compress_data": lambda: torch_api.compress_data(True, ts_g),
+        "Gs torch_api.compress_data_split_size":
+            lambda: torch_api.compress_data_split_size(True, flat, splits),
+        "Gs api.compress_data_stride (all rows 512Ki)":
+            lambda: api.compress_data_stride(True, x2d),
+        "G torch_api.decompress_data (in place)":
+            lambda: torch_api.decompress_data(True, rows_g, outs_g),
+        "Gs torch_api.decompress_data_split_size (contiguous t_out)":
+            lambda: torch_api.decompress_data_split_size(True, arcs, t_c, splits),
+        "Gs torch_api.decompress_data_split_size (t_out not contiguous)":
+            lambda: torch_api.decompress_data_split_size(True, arcs, t_nc, splits),
+        "Gs api.decompress_data_stride (all rows 512Ki)":
+            lambda: api.decompress_data_stride(True, arcs, B, n, torch.bfloat16),
+    }
+    raw = 2 * B * n
+    timing = []
+    log(f"  path G and Gs calls, {ITERS} iterations, CUDA events; card: {card}")
+    for what, fn in calls.items():
+        ms = time_ms(fn, ITERS)
+        timing.append({"call": what, "ms": ms, "gbps": raw / ms / 1e6})
+        log(f"  {what:62s} {ms:9.4f} ms  {raw / ms / 1e6:9.3f} GB/s")
+    for what, fn, nbytes in (
+            ("Gs api.compress_data_stride (raw, path F's rows)",
+             lambda: api.compress_data_stride(False, data_f, lengths_f), sum(lengths_f)),
+            ("Gs api.decompress_data_stride (raw, path F's rows)",
+             lambda: api.decompress_data_stride(False, rows_r, len(lengths_f), RAW_CAP,
+                                                torch.uint8, lengths_f), sum(lengths_f))):
+        ms = time_ms(fn, ITERS)
+        timing.append({"call": what, "ms": ms, "gbps": nbytes / ms / 1e6})
+        log(f"  {what:62s} {ms:9.4f} ms  {nbytes / ms / 1e6:9.3f} GB/s")
+    torch.cuda.empty_cache()
+    return timing
+
+
 def batch_inputs(dev):
     """Paths D and E's words (standard normal f32 from default_rng(0), and
     the same truncated to bf16), and path F's bytes and lengths."""
@@ -2564,6 +2791,7 @@ def main():
     bat["F"] = raw_batch_path(port, data_f, lengths_f, err)
     gh = api_paths(port, bat, words_d, data_f, lengths_f, err)
     hf = ragged_f32_path(port, gh["H"][1], dev, err)
+    front_end = front_end_forms(port, bat, gh, words_d, data_f, lengths_f, card)
     err["split_f32_uniform"] = err_uniform
 
     launches = {}
@@ -2824,6 +3052,7 @@ def main():
     print(json.dumps({"stages": {
         "path": "A", "calls": "one float_compress_padded and one float_decompress_padded",
         "card": card, "rows": stage_rows}}))
+    print(json.dumps({"front_end": {"paths": "G, Gs", "card": card, "rows": front_end}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -504,6 +504,8 @@ def get_compressed_info(compress_as_float: bool, ts_in: Sequence[torch.Tensor]):
     reference reads its info arrays once (DietGpu.cpp:821-911).
     """
     bufs = [_as_u8(t) for t in ts_in]
+    if not bufs:
+        raise ValueError("need at least one archive")
     if any(b.numel() < 32 for b in bufs):
         raise ValueError("archive too small to hold a header")
     heads = torch.stack([b[:32] for b in bufs]).cpu().numpy()

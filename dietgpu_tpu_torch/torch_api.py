@@ -13,8 +13,10 @@ Contract, as in ``dietgpu_tpu.torch_api``:
     scratch, and the reported ``temp_mem_used`` is the reference's
     accounting;
   * ``decompress_data[_split_size]`` write into ``ts_out`` / ``t_out`` in
-    place, only the members whose status is 1, and return (status, sizes,
-    temp_mem_used) in place of out-parameter tensors;
+    place and return (status, sizes, temp_mem_used) in place of
+    out-parameter tensors: ``decompress_data`` writes each member whose
+    status is 1, ``decompress_data_split_size`` all of ``t_out`` only
+    when every status is 1;
   * ``max_*_compressed_output_size`` return (size, B), the reverse of
     :mod:`.api`'s (B, size).
 """
@@ -135,16 +137,22 @@ def decompress_data_split_size(
     checksum: bool = False,
     prob_bits: int = C.DEFAULT_PROB_BITS,
 ):
-    """Decompress a batch into consecutive splits of t_out (in place), each
-    split written only where its member's status is 1
-    (DietGpu.cpp:679-819). Returns (status, sizes, temp_mem_used)."""
-    if not t_out.is_contiguous():
-        raise ValueError("decompress_data_split_size: t_out must be contiguous")
-    pieces = api._split_pieces(t_out.view(-1), _ints(split_sizes), "output")
+    """Decompress a batch into consecutive splits of t_out (in place),
+    written only when every member's status is 1: where one fails, all of
+    t_out keeps its bytes (DietGpu.cpp:679-819). Returns (status, sizes,
+    temp_mem_used). A t_out that is not contiguous is decoded into one
+    scratch buffer and copied into once."""
+    in_place = t_out.is_contiguous()
+    flat = t_out.view(-1) if in_place else torch.empty(
+        t_out.numel(), dtype=t_out.dtype, device=t_out.device)
+    pieces = api._split_pieces(flat, _ints(split_sizes), "output")
     outs, status, sizes, tm = api._decompress_checked(
         compress_as_float, ts_in, pieces, checksum, prob_bits, bits=True
     )
-    _write_ok(pieces, outs, status)
+    if bool(status.all()):
+        api.copy_bits_(pieces, outs)
+        if not in_place:
+            api.copy_bits_([t_out], [flat.view(t_out.shape)])
     return status, sizes, tm
 
 

@@ -163,20 +163,70 @@ def test_empty_tensor_archive():
     assert po[0].numel() == jo[0].numel() == 0
 
 
-def test_split_writes_only_members_that_decode():
-    """One split's archive is swapped for a larger one: that split fails
-    (status 0, its required size) and keeps its bytes; the others are
-    written."""
+def _split_failing_member():
+    """12000 f16 words in splits [4096, 4096, 3808], archive 1 swapped for
+    a 5000-word archive: split 1 fails (status 0, its required size)."""
     t = _gaussian(12_000, torch.float16, seed=5)
     splits = [4096, 4096, 3808]
-    comp, sizes, _ = ptapi.compress_data_split_size(True, t, splits)
+    comp, sizes, _ = jtapi.compress_data_split_size(True, t, splits)
     arcs = rows(comp, sizes)
-    arcs[1] = ptapi.compress_data_simple(True, [_gaussian(5000, torch.float16, seed=6)])[0]
-    out = sentinel_like(t)
-    st, sz, _ = ptapi.decompress_data_split_size(True, arcs, out, splits)
-    assert st.tolist() == [1, 0, 1] and sz[1] == 5000 * 2
-    assert torch.equal(out[:4096], t[:4096]) and torch.equal(out[8192:], t[8192:])
-    assert torch.equal(out[4096:8192], sentinel_like(t)[4096:8192])
+    arcs[1] = jtapi.compress_data_simple(True, [_gaussian(5000, torch.float16, seed=6)])[0]
+    return arcs, lambda: sentinel_like(t), splits, t
+
+
+def _split_strided_t_out():
+    """The words of a (120, 100) f16 view that is not contiguous, in splits
+    [4000, 8000], into ``torch.zeros(100, 120).half().t()``."""
+    t = _gaussian(12_000, torch.float16, seed=1).view(100, 120).t()
+    comp, sizes, _ = jtapi.compress_data_split_size(True, t, [4000, 8000])
+    return rows(comp, sizes), lambda: torch.zeros(100, 120).half().t(), [4000, 8000], t
+
+
+def split_in_place_both(arcs, make_out, splits, device="cpu"):
+    """decompress_data_split_size of the JAX front-end (on the CPU) and the
+    port's (its tensors on `device`) into two fresh outputs: status, sizes
+    and temp_mem must agree, and the outputs bit for bit."""
+    jo, po = make_out(), make_out().to(device)
+    jst, jsz, jtm = jtapi.decompress_data_split_size(True, arcs, jo, splits)
+    pst, psz, ptm = ptapi.decompress_data_split_size(
+        True, [a.to(device) for a in arcs], po, splits)
+    assert pst.device == po.device and po.is_contiguous() == jo.is_contiguous()
+    assert pst.tolist() == jst.tolist() and psz.tolist() == jsz.tolist() and ptm == jtm
+    assert torch.equal(po.cpu().view(torch.int16), jo.view(torch.int16))
+    return pst.tolist(), psz.tolist(), po.cpu()
+
+
+def test_split_writes_only_members_that_decode():
+    """One split's archive is swapped for a larger one: that split fails
+    (status 0, its required size), and, as in the JAX front-end, no split
+    is written: t_out keeps every byte it had."""
+    arcs, make_out, splits, t = _split_failing_member()
+    st, sz, out = split_in_place_both(arcs, make_out, splits)
+    assert st == [1, 0, 1] and sz == [8192, 10000, 7616]
+    assert torch.equal(out, make_out())
+
+
+def test_split_into_non_contiguous_t_out():
+    """A t_out that is not contiguous is decoded into, as the JAX front-end
+    copies into it, in its logical order."""
+    arcs, make_out, splits, t = _split_strided_t_out()
+    st, sz, out = split_in_place_both(arcs, make_out, splits)
+    assert st == [1, 1] and sz == [8000, 16000] and torch.equal(out, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", [_split_failing_member, _split_strided_t_out],
+                         ids=["failing_member", "non_contiguous_t_out"])
+def test_split_in_place_on_card_matches_cpu(cuda_device, inputs):
+    """Both split inputs with the port's tensors on the card: status, sizes,
+    temp_mem and t_out as the JAX front-end's and the port's CPU route's,
+    one decode launch."""
+    arcs, make_out, splits, _ = inputs()
+    _build.reset_kernel_launches()
+    card = split_in_place_both(arcs, make_out, splits, cuda_device)
+    assert _build.kernel_launches()["decode"] == 1
+    cpu = split_in_place_both(arcs, make_out, splits)
+    assert card[:2] == cpu[:2] and torch.equal(card[2].view(torch.int16), cpu[2].view(torch.int16))
 
 
 @pytest.mark.gpu

@@ -10,7 +10,10 @@ members of 1-4 MiB, ragged) as chip_smoke.py makes them; path L
 (chip_smoke.py's GPT-2 XL state dict saved to and loaded from a BytesIO
 through ``checkpoint``); and the API
 paths: G (D's members as 128 tensors through ``torch_api``, decompressed
-in place) and H (64 ragged bf16 tensors of 512Ki-2Mi words through
+in place), Gs (the same words as one flat tensor through the split form
+of ``torch_api``, into a contiguous output and into the (8192, 8192).t()
+of one that is not, and as the rows of one (128, 512Ki) tensor through
+the stride form of ``api``) and H (64 ragged bf16 tensors of 512Ki-2Mi words through
 ``api``); E's split alone, into separate planes; the joins of path J
 (A's and B's split planes back into words); and path K, the collectives
 of ``dietgpu_tpu_torch.parallel`` at world size 1 over NCCL on A's words
@@ -134,6 +137,10 @@ def main():
     outs_g = [torch.empty_like(t) for t in ts_g]
     comp, sizes, _ = torch_api.compress_data(True, ts_g)
     rows_g = [comp[b, :s] for b, s in enumerate(sizes.tolist())]
+    flat_g = words_d.view(torch.bfloat16).view(-1)
+    splits_g = [MEMBER_WORDS] * BATCH
+    x2d_g = flat_g.view(BATCH, MEMBER_WORDS)
+    t_c, t_nc = torch.empty_like(flat_g), torch.empty_like(flat_g).view(8192, 8192).t()
     rng = np.random.default_rng(0)
     ts_h = []
     for k in rng.integers(RAGGED_WORDS[0], RAGGED_WORDS[1] + 1, RAGGED_MEMBERS).tolist():
@@ -168,6 +175,14 @@ def main():
         "F decode": lambda: port.ans_decode_batched(arcs_f, 10, RAW_CAP),
         "G compress": lambda: torch_api.compress_data(True, ts_g),
         "G decompress": lambda: torch_api.decompress_data(True, rows_g, outs_g),
+        "Gs split compress": lambda: torch_api.compress_data_split_size(True, flat_g, splits_g),
+        "Gs split decompress": lambda: torch_api.decompress_data_split_size(
+            True, rows_g, t_c, splits_g),
+        "Gs split decompress, t_out not contiguous": lambda: torch_api.decompress_data_split_size(
+            True, rows_g, t_nc, splits_g),
+        "Gs stride compress": lambda: api.compress_data_stride(True, x2d_g),
+        "Gs stride decompress": lambda: api.decompress_data_stride(
+            True, rows_g, BATCH, MEMBER_WORDS, torch.bfloat16),
         "H compress": lambda: api.compress_data(True, ts_h),
         "H decompress": lambda: api.decompress_data(True, rows_h, ts_h),
         "E split": lambda: cuda_float.split_words_f32_batched_cuda(words_e, Lm),
