@@ -141,6 +141,17 @@ result line:
                each kernel's ms beside its bound and its plain version's
                ms (and, for the histogram, torch.bincount's), and a
                measured copy_ of path A's bytes;
+   captured -- paths A-F, H and Hf (through the batched entry points at
+               path H's lengths) compress and decompress, and path J's
+               two joins, each captured once in a CUDA graph at full
+               width after an eager warm-up under
+               torch.cuda.set_sync_debug_mode("error"): the graph records
+               each kernel of the call once, and each of 3 replays, on
+               inputs copied into the static buffers, equals an eager
+               call on the same input bit for bit (archives [0, size),
+               sizes, statuses, decoded words, which equal the input) and
+               counts no launch; eager and replay calls are timed. Every
+               kernel must have run inside a graph;
 5. path L   -- a compressed checkpoint of a GPT-2 XL state dict (the
                gpt2-xl configuration of the public GPT-2 release: 48
                layers, width 1600, vocabulary 50257, context 1024; 582
@@ -186,6 +197,8 @@ launches of one save and load, the CLI's seconds), a ``{"stages": {...}}``
 line (path A's stages: host ms, self and inclusive, and the device ms of
 the kernels launched inside each), a ``{"front_end": {...}}`` line (paths
 G and Gs: ms and GB/s of each split, stride and path G call), a
+``{"captured": {...}}`` line (each captured call's eager and replay ms and
+GB/s and the launches its graph recorded), a
 ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX, nor
@@ -1620,7 +1633,7 @@ def ragged_f32_path(port, lens_h, dev, err):
     del plain, got, want
     torch.cuda.empty_cache()
     return {
-        "launches": launches,
+        "launches": launches, "words": words,
         "split": (lambda: cuda_float.split_words_f32_batched_cuda(words, lens_h, False,
                                                                   arcs[:, 4:], lens_t),
                   lambda: cuda_float.split_words_f32_batched_plain(words, lens_h, False,
@@ -2470,6 +2483,133 @@ def stages_phase(port, words, n, Lw, ft):
     return rows
 
 
+# each captured call's kernels, one launch of each at the capture
+CAPTURE_KERNELS = {
+    "float": ("split", "encode", "assembly"),
+    "float32": ("split_f32", "encode", "assembly"),
+    "raw": ("hist", "encode", "assembly"),
+    "decode": ("decode",),
+    "decode_f32": ("decode_f32",),
+    "decode_raw": ("decode_raw",),
+    "join": ("join",),
+    "join_f32": ("join_f32",),
+}
+
+
+def capture_call(port, what, fn, inputs, view, kernels):
+    """One call of a path under a CUDA graph: an eager warm-up on a copy of
+    inputs[0] under torch.cuda.set_sync_debug_mode("error"), a capture with
+    the launch counters at 0 before it (each kernel of `kernels` recorded
+    once, no other), then for each input set a copy into the static
+    buffers, a replay, and an eager call on the same input: view() of both
+    must be equal bit for bit, and the replays count no launch. Then the
+    eager call and the replay are timed. Returns (the eager outputs, in
+    input order; eager ms; replay ms; the launches recorded)."""
+    import torch
+
+    static = tuple(x.clone() for x in inputs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(*static)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    port.reset_kernel_launches()
+    with torch.cuda.graph(g):
+        out = fn(*static)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in port.kernel_launches().items() if v}
+    require(launches == dict.fromkeys(kernels, 1),
+            f"{what}: the capture recorded {launches}, want each of {kernels} once")
+    eager = []
+    for k, xs in enumerate(inputs):
+        for s, x in zip(static, xs):
+            s.copy_(x)
+        port.reset_kernel_launches()
+        g.replay()
+        require(not any(port.kernel_launches().values()), f"{what}: a replay counted a launch")
+        eager.append(fn(*xs))
+        torch.cuda.synchronize()
+        got, want = view(out), view(eager[-1])
+        require(len(got) == len(want) and all(
+            a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want)),
+            f"{what}: replay on input {k} differs from the eager call")
+    eager_ms = time_ms(lambda: fn(*static), ITERS)
+    replay_ms = time_ms(g.replay, ITERS)
+    del g, out
+    return eager, eager_ms, replay_ms, launches
+
+
+def archive_view(res):
+    """The sizes and each row's archive [0, size) of (archives, sizes)."""
+    arcs, sizes = res
+    if arcs.dim() == 1:
+        arcs, sizes = arcs[None], sizes[None]
+    return [sizes, *(arcs[m, : (s & 0x7FFFFFFF) // 4] for m, s in enumerate(sizes.tolist()))]
+
+
+def result_view(res):
+    """Every output of a decompress: words or bytes, sizes, statuses."""
+    return [res[k] for k in sorted(res)]
+
+
+def variants(x, lengths=None):
+    """Three inputs of x's shape: x and two rotations of its words (each
+    row's, zero past its length, when `lengths` is given), so that no
+    replay sees an archive that an earlier one made."""
+    import torch
+
+    if lengths is None:
+        return [x] + [torch.roll(x.view(-1), s).view_as(x) for s in (12347, 777777)]
+    keep = torch.arange(x.shape[1], device=x.device)[None, :] < torch.tensor(
+        lengths, device=x.device)[:, None]
+    return [x] + [torch.where(keep, torch.roll(x, s, 1), 0) for s in (12347, 777777)]
+
+
+def captured_phase(port, card, paths):
+    """Each path's compress and decompress (for J, its two joins) captured
+    once in a CUDA graph and replayed on three inputs, each replay equal to
+    an eager call on the same input, each eager output what it must be.
+    `paths` maps a path to a function that makes its calls, in order: (call
+    name, raw bytes, fn, inputs, view, kernels, expect). `inputs` is a list
+    of input tuples, or a function of the eager outputs of the call before
+    it (a decompress takes the compress's archives); expect(k, output), if
+    given, holds the eager output of input k against its input. Returns
+    the rows of the ``captured`` line."""
+    import torch
+
+    from dietgpu_tpu_torch import _build
+
+    rows, recorded = [], set()
+    for name, make_calls in paths.items():
+        log(f"  path {name}: each call captured once, replayed on 3 inputs against eager calls")
+        eager = None
+        for call, raw, fn, inputs, view, kernels, expect in make_calls():
+            if callable(inputs):
+                inputs = inputs(eager)
+            eager, eager_ms, replay_ms, launches = capture_call(
+                port, f"path {name} {call}", fn, inputs, view, CAPTURE_KERNELS[kernels])
+            del inputs
+            recorded.update(launches)
+            if expect is not None:
+                for k, res in enumerate(eager):
+                    require(expect(k, res), f"path {name} {call}: input {k} did not come back")
+            rows.append({"path": name, "call": call, "eager_ms": eager_ms,
+                         "replay_ms": replay_ms, "eager_gbps": raw / eager_ms / 1e6,
+                         "replay_gbps": raw / replay_ms / 1e6, "launches": launches})
+            log(f"    {call:10s} eager {eager_ms:8.4f} ms ({raw / eager_ms / 1e6:9.3f} GB/s)  "
+                f"replay {replay_ms:8.4f} ms ({raw / replay_ms / 1e6:9.3f} GB/s)  "
+                f"recorded {launches}")
+        del eager
+        torch.cuda.empty_cache()
+    require(recorded == set(_build.KERNELS),
+            f"kernels never captured: {sorted(set(_build.KERNELS) - recorded)}")
+    log(f"  every kernel ran inside a graph; card: {card}")
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -3030,7 +3170,70 @@ def main():
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
-    del runs, wu, hf
+    del runs, wu
+    torch.cuda.empty_cache()
+
+    # ---- 4. captured: each path's calls in a CUDA graph ----
+    log(f"# phase 4: captured, each path's compress and decompress in a CUDA graph, replayed "
+        f"on 3 inputs; card: {card}")
+    ts_h, lens_h = gh["H"][:2]
+    W = member_width(lens_h)
+    words_h = torch.zeros((RAGGED_MEMBERS, W), dtype=torch.int16, device=dev)
+    for m, t in enumerate(ts_h):
+        words_h[m, : lens_h[m]] = t.view(torch.int16)
+
+    def float_calls(raw, xs, length, ft_, Lw_, static, kernels, dec_kernels, batched):
+        comp_fn = port.float_compress_batched if batched else port.float_compress_padded
+        dec_fn = port.float_decompress_batched if batched else port.float_decompress_padded
+        want = [x.view(torch.int32) for x in xs]
+        return [
+            ("compress", raw, lambda w: comp_fn(w, length, ft_, 10, False), [(x,) for x in xs],
+             archive_view, kernels, None),
+            ("decompress", raw,
+             lambda a: dec_fn(a, ft_, Lw_, 10, False, static_length=static),
+             lambda ev: [(a,) for a, _ in ev], result_view, dec_kernels,
+             lambda k, r: bool(r["success"].all()) and torch.equal(r["out32"], want[k])),
+        ]
+
+    def raw_calls(raw, xs, length, cap, batched):
+        comp_fn = ((lambda d: port.ans_encode_batched(d, length, None, 10, False)) if batched
+                   else (lambda d: port.ans_encode_padded(d, length, 10, False)))
+        dec_fn = port.ans_decode_batched if batched else port.ans_decode_padded
+        return [
+            ("compress", raw, comp_fn, [(x,) for x in xs], archive_view, "raw", None),
+            ("decompress", raw, lambda a: dec_fn(a, 10, cap), lambda ev: [(a,) for a, _ in ev],
+             result_view, "decode_raw",
+             lambda k, r: bool(r["success"].all()) and torch.equal(r["out"], xs[k])),
+        ]
+
+    def join_calls():
+        half = [one(cuda_float.split_words_batched_cuda(w[None], n, ft))[:2] for w in inputs]
+        full = [one(cuda_float.split_words_f32_batched_cuda(w[None], n))[:3] for w in inputs_b]
+        return [
+            ("join", raw_bytes, lambda e, c: port.join_words_packed(e, c, ft), half,
+             lambda r: [r], "join", lambda k, r: torch.equal(r, inputs[k])),
+            ("join_f32", raw_b, port.join_words_packed_f32, full, lambda r: [r], "join_f32",
+             lambda k, r: torch.equal(r, inputs_b[k])),
+        ]
+
+    Lm = MEMBER_WORDS
+    captured = captured_phase(port, card, {
+        "A": lambda: float_calls(raw_bytes, inputs, n, ft, Lw, n, "float", "decode", False),
+        "B": lambda: float_calls(raw_b, inputs_b, n, F32, Lw, n, "float32", "decode_f32", False),
+        "C": lambda: raw_calls(L, datas, L, L, False),
+        "D": lambda: float_calls(BATCH * Lm * 2, variants(words_d), Lm, ft, Lm, Lm, "float",
+                                 "decode", True),
+        "E": lambda: float_calls(BATCH * Lm * 4, variants(words_e), Lm, F32, Lm, Lm, "float32",
+                                 "decode_f32", True),
+        "F": lambda: raw_calls(sum(lengths_f), variants(data_f, lengths_f), lengths_f, RAW_CAP,
+                               True),
+        "H": lambda: float_calls(2 * sum(lens_h), variants(words_h, lens_h), lens_h, ft, W, None,
+                                 "float", "decode", True),
+        "Hf": lambda: float_calls(4 * sum(lens_h), variants(hf["words"], lens_h), lens_h, F32, W,
+                                  None, "float32", "decode_f32", True),
+        "J": join_calls,
+    })
+    del words_h, hf
     torch.cuda.empty_cache()
 
     # ---- 5. path L: a GPT-2 XL checkpoint; path A's stages ----
@@ -3053,6 +3256,11 @@ def main():
         "path": "A", "calls": "one float_compress_padded and one float_decompress_padded",
         "card": card, "rows": stage_rows}}))
     print(json.dumps({"front_end": {"paths": "G, Gs", "card": card, "rows": front_end}}))
+    print(json.dumps({"captured": {
+        "card": card, "inputs": 3, "iters": ITERS,
+        "measures": "eager_ms: the call as a user makes it; replay_ms: one replay of its CUDA "
+                    "graph, captured once after an eager warm-up (CUDA events, ITERS calls)",
+        "rows": captured}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

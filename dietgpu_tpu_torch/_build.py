@@ -15,6 +15,15 @@ tensor is a batch of one.
 Every wrapper launches through :func:`launch`, which checks the returned
 ``cudaGetLastError()`` and counts the launch under the kernel's name;
 :func:`kernel_launches` reads the counts.
+
+A CUDA graph capture (``torch.cuda.graph``) records the launches of a call
+on the card: the C entry points enqueue nothing but their kernel, and
+their other calls (function attributes, occupancy, the device's SM count,
+the last error) are host queries, legal while a stream captures. A kernel
+is built and loaded at its first launch, which must come before any
+capture: the warm-up call that a capture needs anyway. A launch counts
+once, when it is made, so a capture adds its launches to the counts once
+and a replay adds nothing.
 """
 
 import ctypes
@@ -143,6 +152,9 @@ def _entry(name: str):
     with _lock:
         fn = _entries.get(name)
         if fn is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"kernel '{name}' is not loaded: make one call outside the capture first")
             build_all()
             source, sym, argtypes = _ENTRY[name]
             fn = getattr(ctypes.CDLL(str(_lib_path(source))), sym)
@@ -153,7 +165,9 @@ def _entry(name: str):
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raise if it was refused."""
+    """Launch kernel `name` on the current stream; raise if it was refused.
+    Counts the launch; under a CUDA graph capture the launch is recorded,
+    counted once, and each replay of the graph runs it without counting."""
     fn = _entry(name)
     # ctypes passes arguments past argtypes unchecked, as C ints
     if len(args) + 1 != len(fn.argtypes):
@@ -182,7 +196,9 @@ def kernel_resources(name: str) -> dict:
 
 
 def kernel_launches() -> dict:
-    """Launches of each kernel since the last reset, {name: count}."""
+    """Launches of each kernel since the last reset, {name: count}: the
+    launches made by eager calls and recorded by captures, not those that
+    replays of a CUDA graph run."""
     return dict(_launches)
 
 

@@ -88,8 +88,9 @@ def ans_encode_batched_into(
     encode launch, the sections of all members, one assembly launch.
 
     `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
-    copy on the device, if the caller has one (made here only when the
-    lengths differ). `plain` selects the kernels' plain versions: the
+    copy on the device, if the caller has one (else
+    :func:`layout.lengths_tensor`'s, when the lengths differ). `plain`
+    selects the kernels' plain versions: the
     callers pass it for CPU tensors, and for the plain reference pipeline
     that the chip check runs on the card. Returns the archives' byte sizes,
     (B,) int64 on the device, with SIZE_OVERFLOW_BIT where a member's block
@@ -104,8 +105,7 @@ def ans_encode_batched_into(
     # the kernels take one length (payload offset) when all members share it
     n = lengths[0]
     if any(m != n for m in lengths):
-        n = lengths_t if lengths_t is not None else torch.tensor(
-            lengths, dtype=torch.int64, device=data32.device)
+        n = lengths_t if lengths_t is not None else layout.lengths_tensor(lengths, data32.device)
     stage = "_batched" if batched else ""
     cuda = data32.is_cuda
     with annotate("ans.encode_kernel" + stage, cuda):
@@ -231,7 +231,7 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, batched
     dev = data32.device
     lengths_t = None
     if not all(n == lengths[0] for n in lengths):
-        lengths_t = torch.tensor(lengths, dtype=torch.int64, device=dev)
+        lengths_t = layout.lengths_tensor(lengths, dev)
     cks = None
     if (pdfs is None and hist is None) or use_checksum:
         hist_fn = (

@@ -148,8 +148,11 @@ def write_sections_batched(
     states and blockWords, and the payload prefix is computed.
 
     The geometry comes from the host lengths, so nothing is read back from
-    the device; only B block counts, lengths and offsets go to it, and the
-    torch ops are the same few whatever B and the block count are. Members
+    the device; the B block counts, lengths and offsets it needs on the
+    device are a :func:`layout.device_constant` of these arguments, made by
+    the first call with them and only read (the section words are built in
+    a fresh tensor), so that a CUDA graph captures the call. The torch ops
+    are the same few whatever B and the block count are. Members
     at one offset take their sections by slicing, members at their own
     offsets by one scatter. Every
     row takes the states of all NBm blocks, then zeros up to 2
@@ -179,15 +182,7 @@ def write_sections_batched(
     span = NBm * W + 2 * C.round_up(NBm, 2)
     if int(st32.max()) + span > R:
         raise ValueError("write_sections: the rows are too short for the sections")
-    # the host-known values in one copy: the header's words (the total and
-    # checksum are filled in on the device), then the payload and blockWords
-    # offsets, the archive bytes before the payload, and the archive offsets
-    opts = prob_bits | (int(use_checksum) << 4)
-    head = np.zeros((12, B), np.int64)
-    head[0], head[1], head[2], head[4], head[8], head[9], head[10], head[11] = (
-        (C.ANS_MAGIC << 16) | C.ANS_VERSION, nbs, lengths, opts, ds32, bw32,
-        4 * (ds32 - base), base)
-    host = torch.from_numpy(head).to(dev)
+    host = section_geometry(lengths, base, prob_bits, use_checksum, dev)
 
     words = counts.view(B, NBm).long()
     padded = (words + C.WORDS_PER_ALIGN - 1) & ~(C.WORDS_PER_ALIGN - 1)
@@ -195,11 +190,11 @@ def write_sections_batched(
     prefix = incl - padded
     total = incl[:, -1]
 
-    host[3] = total
-    if use_checksum:
-        host[5] = layout.to_u32(checksums)
     pdfs = layout.to_u32(pdfs)
     sections = layout.to_i32(torch.cat([host[:8].T, pdfs[:, 0::2] | (pdfs[:, 1::2] << 16)], 1))
+    sections[:, 3] = total  # below 2^31
+    if use_checksum:
+        sections[:, 5] = checksums
     if (base == base[0]).all():
         b, s = int(base[0]), int(st32[0])
         arcs[:, b:s] = sections
@@ -222,6 +217,32 @@ def write_sections_batched(
     overflow = (words > MW).any(1)
     sizes = torch.where(overflow, sizes | C.SIZE_OVERFLOW_BIT, sizes)
     return prefix.to(torch.int32), ds32.tolist(), host[8], sizes
+
+
+def section_geometry(lengths, base32, prob_bits, use_checksum, dev):
+    """What :func:`write_sections_batched` takes from the host for archives
+    of `lengths` (B ints) at u32 offsets `base32` (an int or B ints), as a
+    read-only (12, B) int64 :func:`layout.device_constant` on `dev`: the
+    header's eight words (the total, row 3, and the checksum, row 5, are 0:
+    the caller fills them in on the device), then the payload and
+    blockWords u32 offsets, the archive bytes before the payload, and the
+    archive offsets."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    base = np.broadcast_to(np.asarray(base32, dtype=np.int64), lengths.shape)
+
+    def make():
+        nbs = -(-lengths // C.DEFAULT_BLOCK_SIZE)
+        bw32 = base + 136 + nbs * W
+        ds32 = bw32 + 2 * (nbs + (nbs & 1))
+        head = np.zeros((12, len(lengths)), np.int64)
+        head[0], head[1], head[2], head[4], head[8], head[9], head[10], head[11] = (
+            (C.ANS_MAGIC << 16) | C.ANS_VERSION, nbs, lengths,
+            prob_bits | (int(use_checksum) << 4), ds32, bw32, 4 * (ds32 - base), base)
+        return head
+
+    key = ("sections", layout.ints_key(lengths), layout.ints_key(base), prob_bits,
+           bool(use_checksum))
+    return layout.device_constant(key, dev, make)
 
 
 def assemble_payload_batched(arcs, ds32, staged, counts, prefix):

@@ -3,8 +3,9 @@
 Bit-exact twin of ``dietgpu_tpu.ans.stats`` (reference:
 GpuANSStatistics.cuh:179-367), quirks included. u32 values are computed in
 int64; every function works on the device of its inputs and runs as a short
-fixed sequence of tensor ops (no host synchronisation), because the float
-codec calls it between two kernels.
+fixed sequence of tensor ops (no host synchronisation and no copy from the
+host, so a CUDA graph captures it), because the float codec calls it
+between two kernels.
 """
 
 import torch
@@ -30,12 +31,14 @@ def normalize_probs(hist: torch.Tensor, total, prob_bits: int) -> torch.Tensor:
     K = 1 << prob_bits
     dev = hist.device
     hist = layout.to_u32(hist)
-    total = layout.to_u32(torch.as_tensor(total, device=dev))[..., None]
+    if not isinstance(total, torch.Tensor):  # a fill, not a copy from the host
+        total = torch.full(hist.shape[:-1], total, dtype=torch.int64, device=dev)
+    total = layout.to_u32(total)[..., None]
+    # a tensor divisor: a Python one would be multiplied by its reciprocal
     ratio = hist.to(torch.float32) / total.to(torch.float32)
     ratio = torch.where(total == 0, 0.0, ratio)
-    q = (torch.tensor(float(K), dtype=torch.float32, device=dev) * ratio).to(
-        torch.int64
-    )
+    # K is a power of two, so the product rounds as with a float32 K
+    q = (ratio * float(K)).to(torch.int64)
     q = torch.where((hist > 0) & (q == 0), 1, q)
 
     diff = K - q.sum(-1, keepdim=True)

@@ -200,6 +200,38 @@ def float_compress_batched_plain(
                              batched=True)
 
 
+def _archive_base(lengths, float_type):
+    """Each member's ANS archive offset in its container (u32, numpy): the
+    archive follows the member's own raw planes."""
+    lens = np.asarray(lengths, np.int64)
+    base = 4 + (lens + 15) // 16 * 4
+    if float_type == C.FLOAT_TYPE_FLOAT32:
+        base += (lens + 7) // 8 * 4
+    return base
+
+
+def _header(n, float_type, use_checksum):
+    """The float header's four u32 words for n words (the checksum, word
+    3, is 0 until the split gives it)."""
+    return ((C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION, n,
+            (float_type & 0xF) | (int(use_checksum) << 4), 0)
+
+
+def ragged_geometry(lengths, float_type, use_checksum, dev):
+    """What a ragged batch of `lengths` (B ints) takes from the host, as a
+    read-only (5, B) int64 :func:`layout.device_constant` on `dev`: each
+    member's four header words (the second its length) and its archive
+    offset."""
+    lens = np.asarray(lengths, np.int64)
+
+    def make():
+        return np.stack(np.broadcast_arrays(*_header(lens, float_type, use_checksum),
+                                            _archive_base(lens, float_type)))
+
+    key = ("float", layout.ints_key(lens), float_type, bool(use_checksum))
+    return layout.device_constant(key, dev, make)
+
+
 def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain, batched):
     """`batched` names the ANS stages' ranges: the ``_batched`` forms for
     the batched entry points, as the JAX package names them."""
@@ -215,28 +247,20 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain,
     f32 = float_type == C.FLOAT_TYPE_FLOAT32
     Lw = words.shape[1] if f32 else 2 * words.shape[1]
     lengths = layout.member_lengths(length, B, Lw, "float compress")
-    lens = np.asarray(lengths, np.int64)
-    # each member's ANS archive follows its own raw planes
-    base = 4 + (lens + 15) // 16 * 4
-    if f32:
-        base += (lens + 7) // 8 * 4
-    header = np.zeros((4, B), np.int64)
-    header[0] = (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION
-    header[1] = lens
-    header[2] = (float_type & 0xF) | (int(use_checksum) << 4)
+    base = _archive_base(lengths, float_type)
     arcs = torch.empty(
         (B, float_archive_buffer_bytes(float_type, Lw) // 4), dtype=torch.int32, device=dev
     )
     if all(n == lengths[0] for n in lengths):
         n, lengths_t, base32 = lengths[0], None, int(base[0])
         base_t = base32
-        arcs[:, :4] = torch.tensor([layout.as_i32(int(v)) for v in header[:, 0]],
-                                   dtype=torch.int32, device=dev)
-    else:  # the ragged geometry in one copy: header, lengths, bases
-        host = torch.from_numpy(np.concatenate([header, lens[None], base[None]])).to(dev)
+        for c, v in enumerate(_header(n, float_type, use_checksum)):  # a fill a word
+            arcs[:, c] = layout.as_i32(v)
+    else:
+        host = ragged_geometry(lengths, float_type, use_checksum, dev)
         arcs[:, :4] = layout.to_i32(host[:4].T)
-        n = lengths_t = host[4]
-        base32, base_t = base.tolist(), host[5]
+        n = lengths_t = host[1]
+        base32, base_t = base.tolist(), host[4]
     cuda = words.is_cuda
     with annotate("float.split", cuda):
         if f32:
