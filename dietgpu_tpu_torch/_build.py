@@ -13,8 +13,8 @@ batch of members and is launched once for the whole batch; a single
 tensor is a batch of one.
 
 Every wrapper launches through :func:`launch`, which checks the returned
-``cudaGetLastError()`` and counts the launch under the kernel's name;
-:func:`kernel_launches` reads the counts.
+``cudaGetLastError()`` and counts the launch in ``profiling``'s registry
+as ``launch.<kernel>``; :func:`kernel_launches` reads the counts.
 
 A CUDA graph capture (``torch.cuda.graph``) records the launches of a call
 on the card: the C entry points enqueue nothing but their kernel, and
@@ -36,6 +36,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from . import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -92,7 +94,7 @@ _RESOURCES = {
 RESOURCE_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
                    "ctas_per_sm")
 
-_launches = dict.fromkeys(KERNELS, 0)
+_LAUNCH_COUNTER = {k: "launch." + k for k in KERNELS}  # kernel -> its counter
 _entries = {}
 _lock = threading.Lock()
 
@@ -175,7 +177,7 @@ def launch(name: str, *args) -> None:
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {rc}")
-    _launches[name] += 1
+    profiling.count(_LAUNCH_COUNTER[name])
 
 
 def kernel_resources(name: str) -> dict:
@@ -199,12 +201,11 @@ def kernel_launches() -> dict:
     """Launches of each kernel since the last reset, {name: count}: the
     launches made by eager calls and recorded by captures, not those that
     replays of a CUDA graph run."""
-    return dict(_launches)
+    return {k: profiling.counter(c) for k, c in _LAUNCH_COUNTER.items()}
 
 
 def reset_kernel_launches() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    profiling.reset_counters(_LAUNCH_COUNTER.values())
 
 
 def check_cuda_tensor(t: torch.Tensor, what: str, dtype, numel=None, align=16):

@@ -30,6 +30,7 @@ import torch
 from .. import _build
 from .. import constants as C
 from ..floatcodec import split
+from ..profiling import host_read
 from . import checksum, layout
 from . import decode as plain_decode
 
@@ -93,7 +94,7 @@ def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
     B = arcs.shape[0]
     dev = arcs.device
     u = layout.to_u32(arcs)
-    h = u[:, :4].tolist()
+    h = host_read(u[:, :4], plain=True).tolist()
     n = np.array([layout.as_i32(r[1]) for r in h], np.int64)
     ok = np.array(
         [r[0] == (C.FLOAT_MAGIC << 16) | C.FLOAT_VERSION and (r[2] & 0xF) == float_type
@@ -107,8 +108,9 @@ def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
     hi_base = 4 + (n_eff + 7) // 8 * 4
     base = hi_base + (n_eff + 15) // 16 * 4 if f32 else 4 + (n_eff + 15) // 16 * 4
     res = plain_decode.decode_rows(u, prob_bits, Lw, base=base, static_nb=static_nb)
-    sizes = np.array([layout.as_i32(v) for v in res["size"].tolist()], np.int64)
-    ok &= res["success"].cpu().numpy() & (sizes == n_eff)
+    size, success = host_read(torch.stack([res["size"], res["success"].long()]), plain=True)
+    sizes = np.array([layout.as_i32(v) for v in size.tolist()], np.int64)
+    ok &= success.numpy().astype(bool) & (sizes == n_eff)
 
     comp = res["out"]
     if f32:

@@ -21,7 +21,7 @@ import torch
 
 from .. import _build
 from .. import constants as C
-from ..profiling import annotate
+from ..profiling import annotate, host_read
 from . import cuda_hist
 from . import encode as plain_encode
 from . import layout, stats
@@ -165,7 +165,9 @@ def _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
                 precomputed_pdf, plain):
     if data.dim() != 1:
         raise ValueError("ans encode: data must be 1-D")
-    if not isinstance(length, int):
+    if isinstance(length, torch.Tensor):
+        length = int(host_read(length))
+    elif not isinstance(length, int):
         length = int(length)
     pdfs = hist = None
     if precomputed_pdf is not None:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..profiling import host_read
 from . import layout
 from .checksum import checksum_rows
 
@@ -103,7 +104,7 @@ def decode_rows(u, prob_bits, out_max, base=None, static_nb=None, verify_checksu
     def cols(first, k):
         return (first + torch.arange(k, device=dev))[None, :].expand(B, k)
 
-    h = take(cols(0, 8)).tolist()
+    h = host_read(take(cols(0, 8)), plain=True).tolist()
     nb = np.array([layout.as_i32(r[1]) for r in h], np.int64)
     n = np.array([layout.as_i32(r[2]) for r in h], np.int64)
     success = np.array(
@@ -167,7 +168,8 @@ def decode_rows(u, prob_bits, out_max, base=None, static_nb=None, verify_checksu
     out = out.reshape(B, out_max)
     checksum_ok = np.ones(B, bool)
     if verify_checksum and has_checksum.any():
-        got = checksum_rows(out, np.clip(n, 0, out_max).tolist()).tolist()
+        got = checksum_rows(out, np.clip(n, 0, out_max).tolist())
+        got = host_read(got, plain=True).tolist()
         checksum_ok = ~has_checksum | (np.array(got) == np.array([r[5] for r in h]))
     return {
         "out": out,

@@ -28,6 +28,11 @@ of each kernel: ``float_compress_batched`` / ``float_decompress_batched``
 or ``ans_encode_batched`` / ``ans_decode_batched``. Tensors on the card go
 through the kernels, tensors on the CPU through their plain versions.
 
+Each public compress entry point runs inside the span ``front.compress``
+and each decompress one inside ``front.decompress`` (``profiling``); an
+entry that another calls is a child of the caller's span. Every host read
+goes through ``profiling.host_read``, which counts it.
+
 Results equal the JAX API's: row b's archive ``comp[b, :sizes[b]]`` byte
 for byte, sizes, status, temp_mem and decoded tensors, and the same
 exceptions. Only the padded width of ``comp`` differs: compress pads to a
@@ -47,6 +52,7 @@ from .ans import cuda_decode, cuda_encode, layout
 from .ans import decode as ans_decode
 from .ans import encode as ans_encode
 from .floatcodec import codec
+from .profiling import entry, host_read
 
 _FLOAT_TYPE = {
     torch.float16: C.FLOAT_TYPE_FLOAT16,
@@ -181,6 +187,7 @@ def max_float_compressed_output_size(ts: Sequence[torch.Tensor]) -> tuple[int, i
 # ---------------------------------------------------------------------------
 
 
+@entry("front.compress")
 def compress_data(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -219,6 +226,7 @@ def compress_data(
     return arcs.view(torch.uint8), layout.to_i32(sizes), temp_mem
 
 
+@entry("front.compress")
 def compress_data_simple(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -230,7 +238,7 @@ def compress_data_simple(
     ops). Raises OverflowError if any member hit the per-block payload
     bound."""
     comp, sizes, _ = compress_data(compress_as_float, ts_in, checksum, prob_bits)
-    sizes_h = sizes.tolist()
+    sizes_h = host_read(sizes).tolist()
     bad = [i for i, s in enumerate(sizes_h) if s < 0]
     if bad:
         raise OverflowError(f"compressed block payload overflow in batch elements {bad}")
@@ -261,6 +269,7 @@ def _split_pieces(flat: torch.Tensor, split_sizes, what: str):
     return pieces
 
 
+@entry("front.compress")
 def compress_data_split_size(
     compress_as_float: bool,
     t_in: torch.Tensor,
@@ -274,6 +283,7 @@ def compress_data_split_size(
     return compress_data(compress_as_float, pieces, checksum, prob_bits)
 
 
+@entry("front.compress")
 def compress_data_stride(
     compress_as_float: bool,
     t_in: torch.Tensor,
@@ -302,6 +312,7 @@ def compress_data_stride(
 # ---------------------------------------------------------------------------
 
 
+@entry("front.decompress")
 def decompress_data(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -334,8 +345,8 @@ def _decompress_checked(compress_as_float, ts_in, ts_out, checksum, prob_bits, b
     """:func:`decompress_data`; `bits` as in :func:`decompress_members`."""
     outs, ok, sizes_bytes, checksum_ok = decompress_members(
         compress_as_float, ts_in, ts_out, checksum, prob_bits, bits=bits)
-    if checksum and not bool(checksum_ok.all()):
-        bad = torch.nonzero(~checksum_ok).flatten().tolist()
+    if checksum and not bool(host_read(checksum_ok.all())):
+        bad = host_read(torch.nonzero(~checksum_ok).flatten()).tolist()
         raise ValueError(f"checksum mismatch in batch elements {bad}")
     caps = _out_caps(compress_as_float, ts_out)
     temp_mem = ans_decode.decode_scratch_bytes(max(caps), len(ts_in))
@@ -347,6 +358,7 @@ def _out_caps(compress_as_float: bool, ts_out) -> list:
     return [t.numel() if compress_as_float else _byte_length(t) for t in ts_out]
 
 
+@entry("front.decompress")
 def decompress_members(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -391,6 +403,7 @@ def decompress_members(
     return outs, ok, sizes_bytes, res["checksum_ok"]
 
 
+@entry("front.decompress")
 def decompress_data_simple(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -411,11 +424,12 @@ def decompress_data_simple(
     prob_bits = infos[0]["prob_bits"]
     outs, status, _, _ = decompress_data(
         compress_as_float, ts_in, specs, checksum, prob_bits)
-    if not bool(status.bool().all()):
+    if not bool(host_read(status.bool().all())):
         raise ValueError("decompression failed")
     return outs
 
 
+@entry("front.decompress")
 def decompress_data_split_size(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -436,6 +450,7 @@ def decompress_data_split_size(
     return torch.cat([o.reshape(-1) for o in outs]), status, sizes, tm
 
 
+@entry("front.decompress")
 def decompress_data_stride(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -508,7 +523,7 @@ def get_compressed_info(compress_as_float: bool, ts_in: Sequence[torch.Tensor]):
         raise ValueError("need at least one archive")
     if any(b.numel() < 32 for b in bufs):
         raise ValueError("archive too small to hold a header")
-    heads = torch.stack([b[:32] for b in bufs]).cpu().numpy()
+    heads = host_read(torch.stack([b[:32] for b in bufs])).numpy()
     if not compress_as_float:
         return [headers.parse_header(h) for h in heads]
     infos = [headers.parse_float_header(h) for h in heads]
@@ -518,7 +533,7 @@ def get_compressed_info(compress_as_float: bool, ts_in: Sequence[torch.Tensor]):
     # header, hence the second read; an offset past the end reads the last
     # 32 bytes, as the JAX package's dynamic_slice clamps it.
     starts = [min(info["ans_start"], b.numel() - 32) for b, info in zip(bufs, infos)]
-    ans_heads = torch.stack([b[s : s + 32] for b, s in zip(bufs, starts)]).cpu().numpy()
+    ans_heads = host_read(torch.stack([b[s : s + 32] for b, s in zip(bufs, starts)])).numpy()
     for info, ah in zip(infos, ans_heads):
         info["prob_bits"] = headers.parse_header(ah)["prob_bits"]
     return infos

@@ -42,6 +42,7 @@ import torch
 from . import api, headers
 from . import constants as C
 from .floatcodec.codec import _device
+from .profiling import host_read
 
 _MAGIC = 0xD1E77D17
 _VERSION = 1
@@ -147,11 +148,11 @@ def save_arrays(
     for (kind, _, _), members in groups.items():
         comp, sizes, _ = api.compress_data(
             kind == _KIND_FLOAT, [flats[i] for i in members], use_checksum, prob_bits)
-        sizes = sizes.tolist()
+        sizes = host_read(sizes).tolist()
         bad = [names[i] for i, s in zip(members, sizes) if s < 0]
         if bad:
             raise OverflowError(f"compressed block payload overflow in entries {bad}")
-        host = torch.cat([comp[m, :s] for m, s in enumerate(sizes)]).cpu().numpy()
+        host = host_read(torch.cat([comp[m, :s] for m, s in enumerate(sizes)])).numpy()
         off = 0
         for i, s in zip(members, sizes):
             archives[i] = host[off : off + s]
@@ -256,7 +257,7 @@ def load_arrays(path_or_file, device=None) -> dict:
         exact = [torch.empty(counts[i], dtype=dtype, device=dev) for i in members]
         outs, ok, _, checksum_ok = api.decompress_members(
             kind == _KIND_FLOAT, ins, exact, True, prob_bits, bits=True)
-        ok, checksum_ok = torch.stack([ok, checksum_ok]).cpu().tolist()
+        ok, checksum_ok = host_read(torch.stack([ok, checksum_ok])).tolist()
         for i, good, ck in zip(members, ok, checksum_ok):
             if not good:
                 raise ValueError(f"checkpoint entry {entries[i][0]!r}: archive failed to decode")

@@ -36,6 +36,7 @@ import torch
 
 from . import api, headers
 from . import constants as C
+from .profiling import host_read
 
 _FT = {
     "f16": C.FLOAT_TYPE_FLOAT16,
@@ -136,7 +137,7 @@ def main(argv=None) -> int:
         else:
             t = torch.from_numpy(data).to(a.device)
         arc = api.compress_data_simple(a.float is not None, [t], checksum, a.prob_bits)[0]
-        arc = arc.cpu().numpy()
+        arc = host_read(arc).numpy()
         _write(a.outfile, arc)
         ratio = arc.size / max(data.size, 1)
         print(f"{data.size} -> {arc.size} bytes ({ratio:.4f}x)", file=sys.stderr)
@@ -156,7 +157,7 @@ def main(argv=None) -> int:
     out = api.decompress_data_simple(is_float, [torch.from_numpy(arc).to(a.device)], True)[0]
     if out.dtype == torch.bfloat16:
         out = out.view(torch.int16)
-    out = out.view(torch.uint8).cpu().numpy()
+    out = host_read(out.view(torch.uint8)).numpy()
     _write(a.outfile, out)
     print(f"{arc.size} -> {out.size} bytes", file=sys.stderr)
     return 0

@@ -30,7 +30,7 @@ import torch
 from .. import constants as C
 from ..ans import cuda_decode, cuda_encode, layout, stats
 from ..ans import encode as ans_encode
-from ..profiling import annotate
+from ..profiling import annotate, host_read
 from . import cuda_float
 
 
@@ -369,7 +369,7 @@ def float_compress(
     arc32, size = float_compress_padded(
         words, n, _TYPES[x.dtype], prob_bits, use_checksum
     )
-    size = int(size)
+    size = int(host_read(size))
     if size & C.SIZE_OVERFLOW_BIT:
         raise OverflowError("float_compress: a block overflowed its payload bound")
     return arc32[: size // 4].clone()
@@ -388,7 +388,7 @@ def float_decompress(
     arc32 = archive.to(dev).contiguous()
     if arc32.dtype != torch.int32 or arc32.dim() != 1 or arc32.shape[0] < 4:
         raise ValueError("float_decompress: expected a 1-D int32 archive")
-    h = layout.to_u32(arc32[:4]).tolist()
+    h = host_read(layout.to_u32(arc32[:4])).tolist()
     types = {v: k for k, v in _TYPES.items()}
     if h[2] & 0xF not in types:
         raise ValueError("float_decompress: not a float archive")
@@ -397,6 +397,6 @@ def float_decompress(
     res = float_decompress_padded(
         arc32, h[2] & 0xF, Lw, prob_bits, verify_checksum=True, static_length=n
     )
-    if not bool(res["success"]) or not bool(res["checksum_ok"]):
+    if not bool(host_read(res["success"] & res["checksum_ok"])):
         raise ValueError("float_decompress: archive failed to decode")
     return res["out32"].view(types[h[2] & 0xF])[:n]

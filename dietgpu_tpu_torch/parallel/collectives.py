@@ -25,6 +25,11 @@ A payload is the first round_up(budget, 4) / 4 int32 words of the rank's
 archive, zero-padded past the archive buffer. Receivers decode all the
 payloads they got with one batched decode. The raw path moves the words
 as bytes (gloo has no int16).
+
+Each collective's stages run inside the spans ``collective.compress``,
+``.vote``, ``.exchange`` and ``.decode`` (``profiling``), whose call id is
+the call's number on its group: the n-th collective call on a group has the
+same id on every rank, so the spans of one call line up across ranks.
 """
 
 import torch
@@ -32,6 +37,7 @@ import torch.distributed as dist
 
 from .. import constants as C
 from ..floatcodec import codec
+from ..profiling import annotate, host_read
 from .runtime import check_device, resolve_group
 
 _TYPES = {
@@ -41,6 +47,21 @@ _TYPES = {
 }
 # all_gather_single replaces all_gather_into_tensor in newer torch
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_calls = {}  # group name -> collective calls made on it
+
+
+def _call_id(group) -> str:
+    """This collective call's id: ``<group name>.<n>`` for the n-th call on
+    `group`, counted from 0 whether or not anything records."""
+    name = group.group_name
+    n = _calls.get(name, 0)
+    _calls[name] = n + 1
+    return f"{name}.{n}"
+
+
+def _stage(name, x, call):
+    """The span of collective stage `name` of call `call` on `x`'s device."""
+    return annotate("collective." + name, x.is_cuda, call)
 
 
 def default_budget_bytes(shard_words: int, word_size: int) -> int:
@@ -98,7 +119,7 @@ def _vote(fits, group) -> bool:
     group's device, and one host read of it."""
     flag = fits.all().to(torch.int32).reshape(1)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-    return bool(flag.item())
+    return bool(host_read(flag))
 
 
 def _all_gather(t, group):
@@ -136,11 +157,17 @@ def compressed_all_gather(
     n = x.shape[0]
     if budget_bytes is None:
         budget_bytes = default_budget_bytes(n, x.element_size())
-    arcs, sizes = _compress(x[None], prob_bits)
-    if _vote(sizes <= budget_bytes, group):
+    call = _call_id(group)
+    with _stage("compress", x, call):
+        arcs, sizes = _compress(x[None], prob_bits)
+    with _stage("vote", x, call):
+        used = _vote(sizes <= budget_bytes, group)
+    with _stage("exchange", x, call):
+        if not used:
+            return _all_gather(_as_bytes(x), group).view(x.dtype).reshape(-1), False
         rows = _all_gather(_payload(arcs, budget_bytes)[0], group)
+    with _stage("decode", x, call):
         return _decode(rows, x.dtype, n, prob_bits).reshape(-1), True
-    return _all_gather(_as_bytes(x), group).view(x.dtype).reshape(-1), False
 
 
 def compressed_all_gather_auto(
@@ -158,16 +185,21 @@ def compressed_all_gather_auto(
     group = resolve_group(group)
     _check(x, group, "compressed_all_gather_auto", 1)
     n = x.shape[0]
-    arcs, sizes = _compress(x[None], prob_bits)
-    largest = sizes.clone()
-    dist.all_reduce(largest, op=dist.ReduceOp.MAX, group=group)
-    max_size = int(largest.item())
+    call = _call_id(group)
+    with _stage("compress", x, call):
+        arcs, sizes = _compress(x[None], prob_bits)
+    with _stage("vote", x, call):  # the ranks agree on the largest size
+        largest = sizes.clone()
+        dist.all_reduce(largest, op=dist.ReduceOp.MAX, group=group)
+        max_size = int(host_read(largest))
     if max_size & C.SIZE_OVERFLOW_BIT:
         raise OverflowError("compressed_all_gather_auto: a block overflowed its payload bound")
     bucket = max(C.round_up(n * x.element_size() // 16, 16), 4096)
     budget = C.round_up(max_size, bucket)
-    rows = _all_gather(_payload(arcs, budget)[0], group)
-    return _decode(rows, x.dtype, n, prob_bits).reshape(-1), budget
+    with _stage("exchange", x, call):
+        rows = _all_gather(_payload(arcs, budget)[0], group)
+    with _stage("decode", x, call):
+        return _decode(rows, x.dtype, n, prob_bits).reshape(-1), budget
 
 
 def _chunk_exchange(x, group, budget, prob_bits):
@@ -177,11 +209,17 @@ def _chunk_exchange(x, group, budget, prob_bits):
     and decode what came in with one launch. Returns ((world, chunk_words)
     x.dtype, row s from rank s; used_compression bool)."""
     n = x.shape[1]
-    arcs, sizes = _compress(x, prob_bits)
-    if _vote(sizes <= budget, group):
+    call = _call_id(group)
+    with _stage("compress", x, call):
+        arcs, sizes = _compress(x, prob_bits)
+    with _stage("vote", x, call):
+        used = _vote(sizes <= budget, group)
+    with _stage("exchange", x, call):
+        if not used:
+            return _all_to_all(_as_bytes(x), group).view(x.dtype), False
         recv = _all_to_all(_payload(arcs, budget), group)
+    with _stage("decode", x, call):
         return _decode(recv, x.dtype, n, prob_bits), True
-    return _all_to_all(_as_bytes(x), group).view(x.dtype), False
 
 
 def compressed_all_to_all(
@@ -260,15 +298,20 @@ def compressed_ppermute(
     n = x.shape[0]
     if budget_bytes is None:
         budget_bytes = default_budget_bytes(n, x.element_size())
-    arcs, sizes = _compress(x[None], prob_bits)
-    used = _vote(sizes <= budget_bytes, group)
-    send = _payload(arcs, budget_bytes)[0] if used else _as_bytes(x)
-    recv = _permute(send, src, dst, rank, group)
+    call = _call_id(group)
+    with _stage("compress", x, call):
+        arcs, sizes = _compress(x[None], prob_bits)
+    with _stage("vote", x, call):
+        used = _vote(sizes <= budget_bytes, group)
+    with _stage("exchange", x, call):
+        send = _payload(arcs, budget_bytes)[0] if used else _as_bytes(x)
+        recv = _permute(send, src, dst, rank, group)
     if recv is None:
         return torch.zeros_like(x), used
-    if used:
+    if not used:
+        return recv.view(x.dtype), used
+    with _stage("decode", x, call):
         return _decode(recv[None], x.dtype, n, prob_bits)[0], used
-    return recv.view(x.dtype), used
 
 
 def compressed_reduce_scatter(

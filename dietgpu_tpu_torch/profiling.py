@@ -1,4 +1,5 @@
-"""Profiler capture and the codec's stage ranges, on torch.profiler and NVTX.
+"""Profiler capture, the program's spans and counters, on torch.profiler
+and NVTX.
 
 Counterpart of ``dietgpu_tpu.profiling`` (the reference's
 profilerStart/profilerStop, utils/DeviceUtils.cpp:48-54):
@@ -9,31 +10,58 @@ profilerStart/profilerStop, utils/DeviceUtils.cpp:48-54):
     ``torch.profiler.tensorboard_trace_handler`` (a Chrome trace that
     TensorBoard and Perfetto read). A second start, or a stop without a
     start, raises RuntimeError, as ``jax.profiler`` does.
-  * ``annotate(name, cuda=False)`` and ``trace_annotation(name,
-    cuda=False)`` mark a range named ``dietgpu.<name>`` while a profiler
-    records: a ``torch.profiler.record_function``, and an NVTX range when
-    ``cuda`` (the caller's tensors are on the card). Under Nsight Systems,
-    run the code inside ``torch.autograd.profiler.emit_nvtx()``, which
-    turns the ranges on, and the stages show on its timeline. The codec
-    wraps its stages in them under the JAX package's names (split, stats,
-    encode kernel, sections, assembly, fused decode+join).
-  * ``read_trace(logdir)`` and ``stage_account(events)`` read such a
-    capture back and attribute its host and device time to the stages.
+  * ``annotate(name, cuda=False, call=None)`` is a span ``<name>``: while
+    a profiler records it enters a ``torch.profiler.record_function``
+    named ``dietgpu.<name>`` (its twin), and an NVTX range of that name
+    when ``cuda`` (the caller's tensors are on the card); under Nsight
+    Systems, run the code inside ``torch.autograd.profiler.emit_nvtx()``,
+    which turns them on. The codec wraps its stages in spans under the JAX
+    package's names (split, stats, encode kernel, sections, assembly,
+    fused decode+join); the front end's public entry points run inside
+    ``front.compress`` / ``front.decompress`` (:func:`entry`), and each
+    collective's stages inside ``collective.compress``, ``.vote``,
+    ``.exchange`` and ``.decode``.
+  * The recorder: while a profiler records, inside ``record_spans()``, or
+    for the whole process when ``DIETGPU_SPANS_DIR`` is set at import,
+    each span that ends appends one record to a ring of the last
+    ``SPAN_LIMIT``: its id, name, parent span, call id (its root span's
+    id, or the collective call's id that the caller gave), start and end
+    (ns on the Unix epoch, from ``time.perf_counter_ns()`` through one
+    anchor pair taken at import), thread, whether a profiler recorded, and
+    the counters' increments made while it was the innermost open span.
+    :func:`spans` reads the ring. With ``DIETGPU_SPANS_DIR`` set, the
+    process writes it as JSON lines to ``<dir>/spans.<pid>.jsonl`` at exit.
+    A torch Chrome trace's ``ts`` (us) of an instant is ``epoch_ns / 1e3 -
+    baseTimeNanoseconds / 1e3``, so spans line up with the trace, and the
+    spans of ranks on one host with each other.
+  * Counters: :func:`count` adds to a named counter, and to the innermost
+    open span's record. ``_build.launch`` counts each kernel launch under
+    ``launch.<kernel>``; :func:`host_read` is the one way the program
+    reads a tensor's values to the host, and counts ``host_reads``.
+  * ``read_trace(logdir)`` and ``stage_account(events)`` read a capture
+    back and attribute its host and device time to the stages.
 
 A ``record_function`` costs about 7 us of host time even when no profiler
 records, an NVTX push and pop about 1 us, and the compress paths are
-host-bound with six ranges a call, so a range does nothing unless a
-profiler records: it then costs about 1 us, its object and a flag check.
+host-bound, so a span does nothing unless a profiler records or the
+recorder is on: it then costs a flag check and its object.
 
-The ranges are host events around a call's launches: under a CUDA graph
-capture they run once, at the capture, and a replay of the graph runs the
-kernels without them.
+Spans are host events around a call's launches: under a CUDA graph capture
+they run once, at the capture, and a replay of the graph runs the kernels
+without them.
 """
 
 from __future__ import annotations
 
+import atexit
+import functools
 import gzip
+import itertools
 import json
+import os
+import threading
+import time
+from collections import deque
 from pathlib import Path
 
 import torch
@@ -42,8 +70,19 @@ STAGE_PREFIX = "dietgpu."
 OUTSIDE = "(outside the stages)"  # stage_account's row of unstaged device work
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+SPAN_LIMIT = 65536  # the ring keeps the last this many spans
+SPANS_DIR_ENV = "DIETGPU_SPANS_DIR"
+HOST_READS = "host_reads"
+SPAN_FIELDS = ("id", "name", "parent", "call", "start_ns", "end_ns", "thread", "profiler",
+               "counts")
 
 _active = None  # the running torch.profiler.profile, if any
+_counts = {}  # counter name -> count since its reset
+_ring = deque(maxlen=SPAN_LIMIT)
+_ids = itertools.count(1)
+_open_spans = threading.local()  # .stack: this thread's open recorded spans, innermost last
+_recording = 0  # open record_spans() blocks, plus one while DIETGPU_SPANS_DIR is set
+_EPOCH_NS, _PERF_NS = time.time_ns(), time.perf_counter_ns()
 
 
 def profiler_start(logdir: str) -> None:
@@ -76,26 +115,38 @@ def profiler_stop() -> None:
 
 
 class annotate:
-    """A stage range ``dietgpu.<name>`` for profiler timelines, entered
-    with ``with``, that does nothing unless a profiler records; `cuda`
-    adds an NVTX range (for tensors on the card)."""
+    """Span `name` (its profiler twin ``dietgpu.<name>``), entered with
+    ``with``; it does nothing unless a profiler records or the recorder is
+    on. `cuda` adds an NVTX range for tensors on the card (None: where a
+    card is present); `call` gives the span's call id where it has no open
+    parent (a collective's, the same on every rank)."""
 
-    __slots__ = ("name", "cuda", "_range")
+    __slots__ = ("name", "stage", "cuda", "call", "_range", "_span")
 
-    def __init__(self, name: str, cuda: bool = False):
+    def __init__(self, name: str, cuda: bool | None = False, call=None):
+        self.stage = name
         self.name = STAGE_PREFIX + name
         self.cuda = cuda
-        self._range = None
+        self.call = call
+        self._range = self._span = None
 
     def __enter__(self):
-        if torch.autograd._profiler_enabled():
-            if self.cuda:
-                torch.cuda.nvtx.range_push(self.name)
-            self._range = torch.profiler.record_function(self.name)
-            self._range.__enter__()
+        prof = torch.autograd._profiler_enabled()
+        if prof or _recording:
+            self._span = _open(self.stage, self.call, prof)
+            if prof:
+                if self.cuda is None:
+                    self.cuda = torch.cuda.is_available()
+                if self.cuda:
+                    torch.cuda.nvtx.range_push(self.name)
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
         return self
 
     def __exit__(self, *exc):
+        if self._span is not None:
+            _close(self._span)
+            self._span = None
         if self._range is not None:
             self._range.__exit__(*exc)
             self._range = None
@@ -104,9 +155,132 @@ class annotate:
         return False
 
 
-# In JAX a named scope tags traced code and a TraceAnnotation the host's
-# timeline; PyTorch runs eagerly, so one range serves both.
-trace_annotation = annotate
+def entry(name: str):
+    """Decorator: each call of the function runs inside span `name`; a
+    call from inside another entry's span is its child."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name, None):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def _open(name, call, prof):
+    stack = getattr(_open_spans, "stack", None)
+    if stack is None:
+        stack = _open_spans.stack = []
+    sid = next(_ids)
+    parent = stack[-1] if stack else None
+    if parent is not None:
+        call = parent[3]
+    elif call is None:
+        call = sid
+    span = [sid, name, None if parent is None else parent[0], call, 0, 0,
+            threading.get_ident(), prof, None]
+    stack.append(span)
+    span[4] = time.perf_counter_ns()
+    return span
+
+
+def _close(span):
+    span[5] = time.perf_counter_ns()
+    stack = _open_spans.stack
+    if stack[-1] is span:
+        stack.pop()
+    else:  # closed out of order: a span left open by a generator or another frame
+        stack.remove(span)
+    _ring.append(tuple(span))
+
+
+def _epoch_ns(perf_ns: int) -> int:
+    return _EPOCH_NS + perf_ns - _PERF_NS
+
+
+def spans() -> list:
+    """The spans in the ring, in the order they ended, as dicts of
+    :data:`SPAN_FIELDS`; start_ns and end_ns on the Unix epoch, counts
+    {counter: increment} or None."""
+    out = []
+    for s in list(_ring):
+        d = dict(zip(SPAN_FIELDS, s))
+        d["start_ns"], d["end_ns"] = _epoch_ns(s[4]), _epoch_ns(s[5])
+        out.append(d)
+    return out
+
+
+class record_spans:
+    """``with record_spans() as rec:`` turns the recorder on for the block,
+    with or without a profiler; ``rec.spans()`` gives the spans that
+    started inside it and have ended."""
+
+    def __enter__(self):
+        global _recording
+        self._first, self._last = next(_ids), None
+        _recording += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _recording
+        _recording -= 1
+        self._last = next(_ids)
+        return False
+
+    def spans(self) -> list:
+        return [s for s in spans()
+                if s["id"] > self._first and (self._last is None or s["id"] < self._last)]
+
+
+def _write_spans(directory: str) -> None:
+    """The ring's spans as JSON lines, one a span, into
+    ``<directory>/spans.<pid>.jsonl``."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, f"spans.{os.getpid()}.jsonl"), "w") as f:
+        for s in spans():
+            f.write(json.dumps(s) + "\n")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name`, and to the record of this thread's
+    innermost open span."""
+    _counts[name] = _counts.get(name, 0) + n
+    stack = getattr(_open_spans, "stack", None)
+    if stack:
+        span = stack[-1]
+        if span[8] is None:
+            span[8] = {}
+        span[8][name] = span[8].get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """Counter `name` since its last reset."""
+    return _counts.get(name, 0)
+
+
+def reset_counters(names) -> None:
+    for name in names:
+        _counts.pop(name, None)
+
+
+def host_read(t: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """`t` on the host (`t` itself on the CPU): the one way the program
+    reads a tensor's values, counted as one ``host_reads``. It counts on
+    the CPU too, so that a CPU run counts the reads the card's route makes;
+    `plain` marks a read of a kernel's plain version, which stands for a
+    kernel that reads nothing back, and counts only on the card (where the
+    plain version runs as the kernels' reference). Opens no span."""
+    if not plain or t.device.type != "cpu":
+        count(HOST_READS)
+    return t.cpu()
+
+
+if os.environ.get(SPANS_DIR_ENV):
+    _recording += 1
+    atexit.register(_write_spans, os.environ[SPANS_DIR_ENV])
 
 
 def read_trace(logdir) -> list:

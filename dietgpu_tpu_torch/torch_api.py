@@ -19,6 +19,11 @@ Contract, as in ``dietgpu_tpu.torch_api``:
     when every status is 1;
   * ``max_*_compressed_output_size`` return (size, B), the reverse of
     :mod:`.api`'s (B, size).
+
+Each compress op runs inside the span ``front.compress`` and each
+decompress op inside ``front.decompress`` (``profiling``), the :mod:`.api`
+entry it calls nested in it as a child; host reads go through
+``profiling.host_read``.
 """
 
 from typing import Sequence
@@ -27,11 +32,12 @@ import torch
 
 from . import api
 from . import constants as C
+from .profiling import entry, host_read
 
 
 def _ints(split_sizes):
     if isinstance(split_sizes, torch.Tensor):
-        return split_sizes.tolist()
+        return host_read(split_sizes).tolist()
     return split_sizes
 
 
@@ -63,6 +69,7 @@ def max_float_compressed_output_size(ts: Sequence[torch.Tensor]):
 # ---------------------------------------------------------------------------
 
 
+@entry("front.compress")
 def compress_data(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -75,6 +82,7 @@ def compress_data(
     return api.compress_data(compress_as_float, ts_in, checksum, prob_bits)
 
 
+@entry("front.compress")
 def compress_data_split_size(
     compress_as_float: bool,
     t_in: torch.Tensor,
@@ -89,6 +97,7 @@ def compress_data_split_size(
     )
 
 
+@entry("front.compress")
 def compress_data_simple(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -107,10 +116,11 @@ def compress_data_simple(
 def _write_ok(dsts, srcs, status) -> None:
     """Copy each decoded member (in its integer dtype) into its destination
     where status is 1, in one fused copy."""
-    keep = [m for m, ok in enumerate(status.tolist()) if ok]
+    keep = [m for m, ok in enumerate(host_read(status).tolist()) if ok]
     api.copy_bits_([dsts[m] for m in keep], [srcs[m] for m in keep])
 
 
+@entry("front.decompress")
 def decompress_data(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -129,6 +139,7 @@ def decompress_data(
     return status, sizes, tm
 
 
+@entry("front.decompress")
 def decompress_data_split_size(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],
@@ -149,13 +160,14 @@ def decompress_data_split_size(
     outs, status, sizes, tm = api._decompress_checked(
         compress_as_float, ts_in, pieces, checksum, prob_bits, bits=True
     )
-    if bool(status.all()):
+    if bool(host_read(status.all())):
         api.copy_bits_(pieces, outs)
         if not in_place:
             api.copy_bits_([t_out], [flat.view(t_out.shape)])
     return status, sizes, tm
 
 
+@entry("front.decompress")
 def decompress_data_simple(
     compress_as_float: bool,
     ts_in: Sequence[torch.Tensor],

@@ -1,0 +1,11 @@
+"""Idle device ms a front-end compress call while the host is in the front
+end: the traced half's idle gaps whose innermost range is `dietgpu.front.*`,
+over its calls."""
+
+from portbench import spans
+
+UNIT = "ms"
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "api_compress", "front.compress", ("dietgpu.front.",))

@@ -195,6 +195,40 @@ def test_shard_codec_matches_jax(case, world, meshes):
         assert all(np.array_equal(p, probs[0]) for p in probs)
 
 
+STAGES = ("compress", "vote", "exchange", "decode")
+
+
+def _calls(spans):
+    """{group name: [(call id, [stages in order])] in call order} of a
+    rank's recorded collective spans ("<group>.<n> collective.<stage>")."""
+    out = {}
+    for entry in spans:
+        call, name = str(entry).split(" ")
+        group = call.rsplit(".", 1)[0]
+        calls = out.setdefault(group, [])
+        if not calls or calls[-1][0] != call:
+            calls.append((call, []))
+        calls[-1][1].append(name.removeprefix("collective."))
+    return out
+
+
+def test_collective_spans_share_a_call_id_across_ranks(world):
+    """Each rank records the compress, vote, exchange and decode of its
+    collectives; the n-th call on a group has the same id on every rank of
+    it, and every call starts with its compress and vote."""
+    calls = [_calls(world[r]["spans"]) for r in range(W.WORLD)]
+    for r in range(W.WORLD):
+        assert {s for c in calls[r].values() for _, stages in c for s in stages} == set(STAGES)
+        for group, made in calls[r].items():
+            assert [c for c, _ in made] == [f"{group}.{n}" for n in range(len(made))]
+            assert all(stages[:2] == ["compress", "vote"] for _, stages in made)
+    default = [c["0"] for c in calls]
+    assert all([c for c, _ in d] == [c for c, _ in default[0]] for d in default)
+    sub = [calls[r] for r in W.SUBGROUP]
+    assert [set(c) - {"0"} for c in sub][0] == [set(c) - {"0"} for c in sub][1] != set()
+    assert not set(calls[0]) - {"0"} and not set(calls[2]) - {"0"}
+
+
 def test_repeated_source_or_destination_is_refused(world):
     for r in range(W.WORLD):
         for i in range(len(W.BAD_PERMS)):

@@ -5,7 +5,9 @@ with the repository on PYTHONPATH. Every rank joins one gloo process group
 through the file rendezvous, runs every scenario of :data:`CASES` through
 ``dietgpu_tpu_torch.parallel`` on CPU tensors, and saves to
 ``OUT_DIR/rank<RANK>.npz``, for each case, its output bytes, its flag (or
-auto budget) and every archive it compressed to send; on an error it
+auto budget), every archive it compressed to send, and the collective
+spans it recorded (call id and stage, in the order they ended); on an
+error it
 writes the traceback to ``OUT_DIR/rank<RANK>.err``. Imports only torch,
 numpy and the port. The test process imports :func:`case_input` from here,
 so both sides see the same numpy inputs.
@@ -139,7 +141,7 @@ def run_case(case, rank, group, sent, res):
 
 def main(rank, world, rendezvous, out_dir):
     torch.set_num_threads(1)
-    from dietgpu_tpu_torch import parallel
+    from dietgpu_tpu_torch import parallel, profiling
     from dietgpu_tpu_torch.parallel import collectives
 
     # record every archive the collectives compress to send
@@ -159,9 +161,13 @@ def main(rank, world, rendezvous, out_dir):
     res = {}
     try:
         sub = parallel.make_group(SUBGROUP)  # every rank takes part in new_group
-        for case in CASES:
-            if rank in ranks_of(case):
-                run_case(case, rank, sub if case.startswith("subgroup") else None, sent, res)
+        with profiling.record_spans() as rec:
+            for case in CASES:
+                if rank in ranks_of(case):
+                    run_case(case, rank, sub if case.startswith("subgroup") else None, sent,
+                             res)
+        res["spans"] = np.array([f"{s['call']} {s['name']}" for s in rec.spans()
+                                 if s["name"].startswith("collective.")])
         for i, perm in enumerate(BAD_PERMS):
             try:
                 parallel.compressed_ppermute(torch.zeros(4096, dtype=torch.bfloat16), perm)
