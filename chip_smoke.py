@@ -13,8 +13,9 @@ result line:
                prints the resources of the split, hist, encode, decode and
                join kernels (registers, static and dynamic shared bytes, spill
                bytes, threads and CTAs per SM) on progress lines;
-2. kernels  -- each of the ten kernels (split, split_f32, hist, encode,
-               assembly, decode in three configurations, join in two;
+2. kernels  -- each of the twelve kernels (split, split_f32, hist,
+               tables, encode, sections, assembly, decode in three
+               configurations, join in two;
                every one takes a batch, a single tensor being a batch of
                one) against its plain torch version on the card,
                bit-exact (tolerance 0: the codec is lossless and the
@@ -139,7 +140,9 @@ result line:
                D-F also the same batch as B single-tensor calls; G and H
                beside D and the ragged batch's bytes), the joins' GB/s,
                each kernel's ms beside its bound and its plain version's
-               ms (and, for the histogram, torch.bincount's), and a
+               ms (and, for the histogram, torch.bincount's; the tables
+               and sections kernels, whose wrappers' host code outlasts
+               them, timed from a CUDA graph of 20 calls), and a
                measured copy_ of path A's bytes;
    captured -- paths A-F, H and Hf (through the batched entry points at
                path H's lengths) compress and decompress, and path J's
@@ -174,8 +177,8 @@ result line:
    stages   -- one path A compress and decompress under
                ``profiling.profiler_start`` / ``profiler_stop``: every
                stage range of the path is in the trace once, and the
-               split, encode, assembly and decode kernels each launch
-               inside their own stage.
+               split, tables, encode, sections, assembly and decode
+               kernels each launch inside their own stage.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; a row's `launches` is its kernel's count from the row's
@@ -239,6 +242,14 @@ KERNELS = {
     "assembly": (
         "dietgpu_tpu_torch/csrc/assembly.cu",
         "dietgpu_tpu/ans/pallas_encode.py:682", 0, "A", "assembly",
+    ),
+    "tables": (
+        "dietgpu_tpu_torch/csrc/stats.cu",
+        "none (XLA ops: dietgpu_tpu/ans/stats.py:25, :145)", 0, "A", "tables",
+    ),
+    "sections": (
+        "dietgpu_tpu_torch/csrc/assembly.cu",
+        "none (XLA ops: dietgpu_tpu/ans/pallas_encode.py:_encode_stage2)", 0, "A", "sections",
     ),
     "decode": (
         "dietgpu_tpu_torch/csrc/decode.cu",
@@ -313,21 +324,24 @@ KERNELS = {
         "dietgpu_tpu/floatcodec/pallas_float.py:399", 3, "J", "join_f32",
     ),
 }
+# rows timed in a CUDA graph of ITERS calls: kernels of a few microseconds,
+# whose wrappers' host code an eager loop would time
+GRAPH_TIMED = ("tables", "sections")
 # the kernels each path must launch
+ENC = ("tables", "encode", "sections", "assembly")  # every compress's kernels after the first
 PATH_KERNELS = {
-    "A": ("split", "encode", "assembly", "decode"),
-    "B": ("split_f32", "encode", "assembly", "decode_f32"),
-    "C": ("hist", "encode", "assembly", "decode_raw"),
-    "D": ("split", "encode", "assembly", "decode"),
-    "E": ("split_f32", "encode", "assembly", "decode_f32"),
-    "F": ("hist", "encode", "assembly", "decode_raw"),
-    "G": ("split", "encode", "assembly", "decode"),
-    "H": ("split", "encode", "assembly", "decode"),
-    "Hr": ("hist", "encode", "assembly", "decode_raw"),
-    "Hf": ("split_f32", "encode", "assembly", "decode_f32"),
+    "A": ("split", *ENC, "decode"),
+    "B": ("split_f32", *ENC, "decode_f32"),
+    "C": ("hist", *ENC, "decode_raw"),
+    "D": ("split", *ENC, "decode"),
+    "E": ("split_f32", *ENC, "decode_f32"),
+    "F": ("hist", *ENC, "decode_raw"),
+    "G": ("split", *ENC, "decode"),
+    "H": ("split", *ENC, "decode"),
+    "Hr": ("hist", *ENC, "decode_raw"),
+    "Hf": ("split_f32", *ENC, "decode_f32"),
     "J": ("split", "join", "split_f32", "join_f32"),
-    "L": ("split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
-          "decode_raw"),
+    "L": ("split", "split_f32", "hist", *ENC, "decode", "decode_f32", "decode_raw"),
 }
 # paths whose calls must launch each kernel once
 BATCHED_PATHS = ("D", "E", "F", "G", "H", "Hr", "Hf", "J")
@@ -386,6 +400,28 @@ def time_ms(fn, iters, warmup=2):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """ms of one call of fn, from a CUDA graph of `iters` calls replayed
+    once: the device's time for a call so short that an eager loop would
+    time its host code."""
+    import torch
+
+    fn()  # the kernels built, the geometry made
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -1675,7 +1711,7 @@ def front_end_forms(port, bat, gh, words_d, data_f, lengths_f, card):
     n, B, dev = MEMBER_WORDS, BATCH, words_d.device
     flat = words_d.view(torch.bfloat16).view(-1)
     splits = [n] * B
-    compress_k, raw_k = ("split", "encode", "assembly"), ("hist", "encode", "assembly")
+    compress_k, raw_k = ("split", *ENC), ("hist", *ENC)
     d_arcs, d_sizes = bat["D"]["arcs"].view(torch.uint8), bat["D"]["sizes"].tolist()
     fail = B - 3  # the member (split or row) whose archive is swapped for a larger one
     sentinel = -0x5556  # 0xAAAA
@@ -1871,8 +1907,8 @@ def batch_inputs(dev):
 
 COLL_SMALL = (4096, 5000)  # path K's cross-check against the gloo CPU route, words
 COLL_ITERS = 10  # timed calls per collective (the median is kept)
-_HALF = {"split": 1, "encode": 1, "assembly": 1, "decode": 1}
-_RAW = {"hist": 1, "encode": 1, "assembly": 1, "decode_raw": 1}
+_HALF = {"split": 1, "tables": 1, "encode": 1, "sections": 1, "assembly": 1, "decode": 1}
+_RAW = {"hist": 1, "tables": 1, "encode": 1, "sections": 1, "assembly": 1, "decode_raw": 1}
 # path K's calls: name -> (function of dietgpu_tpu_torch.parallel, input,
 # keyword arguments, the launches of one call, the raw collective timed
 # beside it). Inputs: A's bf16 words, a (1, n) row of them for the
@@ -1881,17 +1917,21 @@ _RAW = {"hist": 1, "encode": 1, "assembly": 1, "decode_raw": 1}
 COLL_CALLS = {
     "all_gather": ("compressed_all_gather", "bf16", {}, _HALF, "all_gather"),
     "all_gather_raw": ("compressed_all_gather", "bf16", {"budget_bytes": 1024},
-                       {"split": 1, "encode": 1, "assembly": 1}, "all_gather"),
+                       {"split": 1, "tables": 1, "encode": 1, "sections": 1, "assembly": 1},
+                       "all_gather"),
     "all_gather_auto": ("compressed_all_gather_auto", "bf16", {}, _HALF, "all_gather"),
     "all_to_all": ("compressed_all_to_all", "bf16_row", {}, _HALF, "all_to_all"),
     "reduce_scatter": ("compressed_reduce_scatter", "bf16", {}, _HALF, "reduce_scatter"),
     "all_reduce": ("compressed_all_reduce", "bf16", {}, {k: 2 for k in _HALF}, "all_reduce"),
     "ppermute": ("compressed_ppermute", "bf16", {}, _HALF, "copy_"),
     "all_gather_f32": ("compressed_all_gather", "f32", {"budget_bytes": 0.875},
-                       {"split_f32": 1, "encode": 1, "assembly": 1, "decode_f32": 1},
+                       {"split_f32": 1, "tables": 1, "encode": 1, "sections": 1,
+                        "assembly": 1, "decode_f32": 1},
                        "all_gather"),
     "shard": ("shard", "bytes", {"shared_stats": False}, _RAW, None),
-    "shard_shared_stats": ("shard", "bytes", {"shared_stats": True}, _RAW, None),
+    # the shared weights from the summed counts, then the table from them
+    "shard_shared_stats": ("shard", "bytes", {"shared_stats": True}, {**_RAW, "tables": 2},
+                           None),
 }
 
 
@@ -2116,7 +2156,8 @@ CKPT_PLAIN_BYTES = 1 << 28  # padded input of one plain-pipeline call of path L'
 # path A's stage ranges, and the stage each of its kernels must launch in
 A_STAGES = ("float.split", "float.stats", "float.ans_encode", "ans.encode_kernel",
             "ans.sections", "ans.assembly", "float.fused_decode_join")
-STAGE_OF_KERNEL = {"split_kernel": "float.split", "encode_kernel": "ans.encode_kernel",
+STAGE_OF_KERNEL = {"split_kernel": "float.split", "tables_kernel": "float.stats",
+                   "encode_kernel": "ans.encode_kernel", "sections_kernel": "ans.sections",
                    "assembly_kernel": "ans.assembly", "decode_kernel": "float.fused_decode_join"}
 
 
@@ -2485,9 +2526,9 @@ def stages_phase(port, words, n, Lw, ft):
 
 # each captured call's kernels, one launch of each at the capture
 CAPTURE_KERNELS = {
-    "float": ("split", "encode", "assembly"),
-    "float32": ("split_f32", "encode", "assembly"),
-    "raw": ("hist", "encode", "assembly"),
+    "float": ("split", *ENC),
+    "float32": ("split_f32", *ENC),
+    "raw": ("hist", *ENC),
     "decode": ("decode",),
     "decode_f32": ("decode_f32",),
     "decode_raw": ("decode_raw",),
@@ -2760,6 +2801,9 @@ def main():
     exp32 = ks[0][None]
     pdf = stats.normalize_probs(ks[2], n, 10)
     table = plain_encode.encode_table(pdf)[None]
+    hist_a = ks[2][None].contiguous()
+    kt = cuda_encode.quantize_cuda(hist_a, n, 10)
+    err["tables"] = require_exact("tables, main shape", [(kt[0], pdf[None]), (kt[1], table)])
     ke = cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, table)
     pe = plain_encode.encode_blocks_batched(exp32, n, 10, table)
     err["encode"] = require_exact("encode, main shape",
@@ -2767,8 +2811,14 @@ def main():
     del pe
     base32 = 4 + C.round_up(n, 16) // 4
     asm_k = torch.zeros_like(arc)[None]
-    prefix, ds32, _, _ = plain_encode.write_sections_batched(
+    sec_k = torch.zeros_like(asm_k)
+    prefix, ds32, _, sizes_p = plain_encode.write_sections_batched(
         asm_k, base32, pdf[None], ke[2], ke[1], [n], 10)
+    sec = cuda_encode.write_sections_batched_cuda(sec_k, base32, kt[0], ke[2], ke[1], [n], 10)
+    err["sections"] = require_exact("sections, main shape", [
+        (sec_k, asm_k), (sec[0], prefix), (sec[3], sizes_p), (torch.tensor(sec[1]),
+                                                               torch.tensor(ds32))])
+    del sec_k, sec
     ds32 = ds32[0]
     asm_p = asm_k.clone()
     cuda_encode.assemble_payload_batched_cuda(asm_k, ds32, ke[0], ke[1], prefix)
@@ -3082,6 +3132,11 @@ def main():
         "split": (4 * Lw + 4 * 256, Lw),
         "encode": (Lw + 2048 + 2 * emitted + 4 * NB + 128 * NB, n),
         "assembly": (4 * padded_words + 8 * NB, 0),
+        # counts read, weights written, table written
+        "tables": (4 * 256 + 4 * 256 + 4 * 512, 0),
+        # counts and states read; states, blockWords, prefix, header and
+        # probs written; weights read
+        "sections": (NB * (4 + 128 + 128 + 8 + 4) + 4 * 136 + 4 * 256, 0),
         "decode": (size + 2 * Lw, n),
         "hist": (L + 4 * 256, L),
         "decode_raw": (size_c + L, L),
@@ -3121,6 +3176,14 @@ def main():
         "assembly": (
             lambda: cuda_encode.assemble_payload_batched_cuda(asm_k, ds32, ke[0], ke[1], prefix),
             lambda: plain_encode.assemble_payload_batched(asm_k, ds32, ke[0], ke[1], prefix)),
+        "tables": (lambda: cuda_encode.quantize_cuda(hist_a, n, 10),
+                   lambda: plain_encode.encode_table(stats.normalize_probs(ks[2], n, 10))),
+        # the same words again into path A's archive buffer
+        "sections": (
+            lambda: cuda_encode.write_sections_batched_cuda(asm_k, base32, kt[0], ke[2], ke[1],
+                                                            [n], 10),
+            lambda: plain_encode.write_sections_batched(asm_k, base32, pdf[None], ke[2], ke[1],
+                                                        [n], 10)),
         "decode": (lambda: cuda_decode.decode_float(arc, ft, Lw, 10, n),
                    lambda: cuda_decode.decode_float_plain(arc, ft, Lw, 10, n)),
         "hist": (lambda: cuda_hist.histogram_u8_batched_cuda(d32c[None], [L]),
@@ -3154,7 +3217,7 @@ def main():
     rows = []
     for k, (source, replaces, ops_per, _, _) in KERNELS.items():
         nbytes, nsym = work[k]
-        ms = time_ms(runs[k][0], ITERS)
+        ms = (graph_ms if k in GRAPH_TIMED else time_ms)(runs[k][0], ITERS)
         plain_ms = time_ms(runs[k][1], 1, warmup=0)
         library_ms = time_ms(library[k], ITERS) if k in library else None
         torch.cuda.empty_cache()
@@ -3165,7 +3228,7 @@ def main():
             "launches": launches[k], "max_abs_err": err[k], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "timed": "graph" if k in GRAPH_TIMED else "eager",
         })
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "

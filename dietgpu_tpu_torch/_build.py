@@ -7,7 +7,8 @@ it may include (``csrc/*.cuh``), then loaded with ctypes. All sources are
 compiled in parallel, one ``nvcc`` each. Nothing is built when the package
 is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
-decode kernel; ``join.cu`` the f16/bf16 and f32 joins), each with its own C
+decode kernel; ``join.cu`` the f16/bf16 and f32 joins; ``assembly.cu`` the
+assembly and the sections kernels), each with its own C
 entry point. Every kernel takes a
 batch of members and is launched once for the whole batch; a single
 tensor is a batch of one.
@@ -41,7 +42,7 @@ from . import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("split", "split_f32", "hist", "encode", "assembly", "decode", "join")
+SOURCES = ("split", "split_f32", "hist", "stats", "encode", "assembly", "decode", "join")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -63,7 +64,11 @@ _ENTRY = {
         (_VP, _LL, _LL, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL),
     ),
     "hist": ("hist", "dtt_hist", (_VP, _LL, _LL, _LL, _VP, _LL, _VP, _VP, _LL)),
+    "tables": ("stats", "dtt_tables", (_VP, _VP, _LL, _LL, _VP, _INT, _VP, _VP)),
     "encode": ("encode", "dtt_encode", (_VP, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP)),
+    "sections": (
+        "assembly", "dtt_sections", (_VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _LL, _VP, _VP),
+    ),
     "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP)),
     "decode": (
         "decode", "dtt_decode", (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP),
@@ -84,6 +89,8 @@ _RESOURCES = {
     "split": ("split", "dtt_split_resources", 0),
     "split_f32": ("split_f32", "dtt_split_f32_resources", 0),
     "hist": ("hist", "dtt_hist_resources", 0),
+    "tables": ("stats", "dtt_tables_resources", 0),
+    "sections": ("assembly", "dtt_sections_resources", 0),
     "encode": ("encode", "dtt_encode_resources", 0),
     "decode": ("decode", "dtt_decode_resources", 0),
     "decode_f32": ("decode", "dtt_decode_resources", 1),

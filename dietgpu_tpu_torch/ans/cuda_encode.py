@@ -1,14 +1,16 @@
-"""rANS encode on the card: the encode kernel (``csrc/encode.cu``), the
-section prefill, and the assembly kernel (``csrc/assembly.cu``), and the
-raw-ANS entry points that put the histogram kernel (``csrc/hist.cu``) in
-front of them.
+"""rANS encode on the card: the tables kernel (``csrc/stats.cu``: the
+probability quantization and the encode table), the encode kernel
+(``csrc/encode.cu``), the sections and assembly kernels
+(``csrc/assembly.cu``), and the raw-ANS entry points that put the
+histogram kernel (``csrc/hist.cu``) in front of them.
 
 Counterpart of ``dietgpu_tpu.ans.pallas_encode`` (``_encode_stage1``,
 ``_encode_stage2``, ``_encode_finish``, ``ans_encode_padded_pallas``,
-``ans_encode_batched_pallas``). A CUDA tensor goes through the kernels; a
-CPU tensor through their plain versions in :mod:`.encode` and
-:mod:`.cuda_hist`. The glue between them (probability quantization,
-tables, sections, prefix) is torch on either device.
+``ans_encode_batched_pallas``) and of the XLA ops between its kernels
+(``stats.normalize_probs``, ``build_encode_table``, the section prefill).
+A CUDA tensor goes through the kernels; a CPU tensor through their plain
+versions in :mod:`.stats`, :mod:`.encode` and :mod:`.cuda_hist`, which are
+also the plain pipeline that the chip check runs on the card.
 
 Every step works on B members, rows of one (B, L/4) buffer, each with its
 own table and length, with one launch of each kernel whatever B is (the
@@ -25,6 +27,55 @@ from ..profiling import annotate, host_read
 from . import cuda_hist
 from . import encode as plain_encode
 from . import layout, stats
+
+
+def quantize_cuda(hist, total, prob_bits):
+    """Launch ``csrc/stats.cu`` on B members' counts, one launch for all:
+    `hist` is (B, 256) int32 on the card, `total` an int for every member
+    or a (B,) int64 tensor on the card. Returns (pdfs (B, 256) int32,
+    tables (B, 512) int32), bit for bit ``stats.normalize_probs`` (its low
+    32 bits) and ``encode.encode_table`` of it."""
+    if prob_bits not in C.SUPPORTED_PROB_BITS:
+        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
+    B = _check_symbols(hist, "tables counts")
+    scalar = isinstance(total, int)
+    if not scalar:
+        _build.check_cuda_tensor(total, "tables totals", torch.int64, B, align=8)
+    pdfs = torch.empty((B, C.NUM_SYMBOLS), dtype=torch.int32, device=hist.device)
+    tables = torch.empty((B, 2 * C.NUM_SYMBOLS), dtype=torch.int32, device=hist.device)
+    _build.launch("tables", hist.data_ptr(), None, B, total if scalar else 0,
+                  None if scalar else total.data_ptr(), prob_bits, pdfs.data_ptr(),
+                  tables.data_ptr())
+    return pdfs, tables
+
+
+def encode_table_cuda(pdfs):
+    """Launch ``csrc/stats.cu`` on B members' weights ((B, 256) int32 on
+    the card): the (B, 512) int32 tables alone, bit for bit
+    ``encode.encode_table``."""
+    B = _check_symbols(pdfs, "tables weights")
+    tables = torch.empty((B, 2 * C.NUM_SYMBOLS), dtype=torch.int32, device=pdfs.device)
+    _build.launch("tables", None, pdfs.data_ptr(), B, 0, None, 0, None, tables.data_ptr())
+    return tables
+
+
+def _check_symbols(t, what):
+    """B, for a (B, 256) int32 tensor on the card."""
+    if t.dim() != 2 or t.shape[1] != C.NUM_SYMBOLS:
+        raise ValueError(f"{what}: expected (B, {C.NUM_SYMBOLS}), got {tuple(t.shape)}")
+    _build.check_cuda_tensor(t, what, torch.int32, align=4)
+    return t.shape[0]
+
+
+def quantize(hist, total, prob_bits, plain):
+    """(pdfs, tables) of B members' counts ((B, 256), any integer dtype;
+    `total` as :func:`quantize_cuda` takes it), as the encode takes them:
+    the tables kernel on the counts' low 32 bits, or for `plain` its plain
+    version (``stats.normalize_probs``, then ``encode.encode_table``)."""
+    if not plain:
+        return quantize_cuda(hist.to(torch.int32).contiguous(), total, prob_bits)
+    pdfs = stats.normalize_probs(hist, total, prob_bits)
+    return pdfs, plain_encode.encode_table(pdfs)
 
 
 def encode_blocks_batched_cuda(data32, length, prob_bits, tables):
@@ -77,15 +128,56 @@ def assemble_payload_batched_cuda(arcs, ds32, staged, counts, prefix):
     )
 
 
+def write_sections_batched_cuda(
+    arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum=False,
+    checksums=None,
+):
+    """Launch the sections kernel (``csrc/assembly.cu``), one launch for
+    all B members; same contract and return as
+    :func:`encode.write_sections_batched` (`pdfs` (B, 256) int32,
+    `checksums` (B,) int32 when `use_checksum`, every tensor on the card),
+    and the same words written into `arcs`. The geometry is the same
+    read-only :func:`encode.section_geometry`, so nothing is read back and
+    a CUDA graph captures the call."""
+    _build.check_cuda_tensor(arcs, "sections archives", torch.int32)
+    if arcs.dim() != 2 or arcs.shape[1] % 4:
+        raise ValueError("sections: the archives must be B rows of a multiple of 16 bytes")
+    B, R = arcs.shape
+    if B == 0 or counts.dim() != 1 or counts.shape[0] % B:
+        raise ValueError("sections: counts must be B * NBm block counts")
+    lengths, base, ds32, NBm, _ = plain_encode.section_rows(arcs, counts, lengths, base32)
+    if (base % 4).any():
+        raise ValueError("sections: the archive offset must be 16-byte aligned")
+    _check_symbols(pdfs, "sections weights")
+    if pdfs.shape[0] != B:
+        raise ValueError(f"sections weights: expected {B} rows, got {pdfs.shape[0]}")
+    _build.check_cuda_tensor(counts, "sections counts", torch.int32, B * NBm)
+    _build.check_cuda_tensor(states, "sections states", torch.int32, B * NBm * C.NUM_INTERLEAVED)
+    if use_checksum:
+        _build.check_cuda_tensor(checksums, "sections checksums", torch.int32, B, align=4)
+    host = plain_encode.section_geometry(lengths, base, prob_bits, use_checksum, arcs.device)
+    prefix = torch.empty((B, NBm), dtype=torch.int32, device=arcs.device)
+    sizes = torch.empty(B, dtype=torch.int64, device=arcs.device)
+    _build.launch(
+        "sections", counts.data_ptr(), states.data_ptr(), pdfs.data_ptr(), host.data_ptr(),
+        checksums.data_ptr() if use_checksum else None, B, NBm, arcs.data_ptr(), R,
+        prefix.data_ptr(), sizes.data_ptr(),
+    )
+    return prefix, ds32.tolist(), host[8], sizes
+
+
 def ans_encode_batched_into(
     arcs, base32, data32, lengths, prob_bits, pdfs, use_checksum=False,
-    checksums=None, *, plain, lengths_t=None, batched=False,
+    checksums=None, *, plain, lengths_t=None, batched=False, tables=None,
 ):
     """Encode the first lengths[m] bytes of row m of `data32` ((B, L/4)
-    int32) with the quantized pdfs[m] ((B, 256)) into row m of `arcs` ((B,
-    R) int32) at u32 offset `base32` (an int for every member or B host
-    ints, each a multiple of 4), in place, for every member at once: one
-    encode launch, the sections of all members, one assembly launch.
+    int32) with the quantized pdfs[m] ((B, 256); int32 on the card) into
+    row m of `arcs` ((B, R) int32) at u32 offset `base32` (an int for every
+    member or B host ints, each a multiple of 4), in place, for every
+    member at once: one encode launch, one sections launch, one assembly
+    launch. `tables` is the pdfs' (B, 512) encode tables if the caller has
+    them (:func:`quantize`), else they are built here (one launch of the
+    tables kernel on the card).
 
     `lengths` is B host ints (ragged allowed); `lengths_t` their (B,) int64
     copy on the device, if the caller has one (else
@@ -109,11 +201,15 @@ def ans_encode_batched_into(
     stage = "_batched" if batched else ""
     cuda = data32.is_cuda
     with annotate("ans.encode_kernel" + stage, cuda):
-        tables = plain_encode.encode_table(pdfs)
+        if tables is None:
+            tables = plain_encode.encode_table(pdfs) if plain else encode_table_cuda(pdfs)
         encode_fn = plain_encode.encode_blocks_batched if plain else encode_blocks_batched_cuda
         staged, counts, states = encode_fn(data32, n, prob_bits, tables)
     with annotate("ans.sections" + stage, cuda):
-        prefix, ds32, ds32_t, sizes = plain_encode.write_sections_batched(
+        sections_fn = (
+            plain_encode.write_sections_batched if plain else write_sections_batched_cuda
+        )
+        prefix, ds32, ds32_t, sizes = sections_fn(
             arcs, base32, pdfs, states, counts, lengths, prob_bits, use_checksum, checksums,
         )
     with annotate("ans.assembly" + stage, cuda):
@@ -141,9 +237,9 @@ def ans_encode_padded(
     histogram pass.
 
     On the card the chain is the histogram kernel (with the checksum fused
-    when `use_checksum`), ``normalize_probs``, the encode kernel, the
-    sections and the assembly kernel, with no host round trip; on the CPU
-    the same chain runs through the kernels' plain versions. It is
+    when `use_checksum`), the tables, encode, sections and assembly
+    kernels, with no host round trip; on the CPU the same chain runs
+    through the kernels' plain versions. It is
     :func:`ans_encode_batched` on a batch of one.
     """
     return _encode_one(data, length, prob_bits, use_checksum, precomputed_histogram,
@@ -242,16 +338,19 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, batched
         )
         h, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
         hist = h if hist is None else hist
+    tables = None
     if pdfs is None:
         totals = lengths[0] if lengths_t is None else lengths_t
-        pdfs = stats.normalize_probs(hist.to(dev), totals, prob_bits)
-    else:
+        pdfs, tables = quantize(hist.to(dev), totals, prob_bits, plain)
+    elif plain:
         pdfs = layout.to_u32(pdfs.to(dev))
+    else:
+        pdfs = pdfs.to(dev, torch.int32).contiguous()
     arcs = torch.empty(
         (B, plain_encode.archive_buffer_bytes(L) // 4), dtype=torch.int32, device=dev
     )
     sizes = ans_encode_batched_into(
         arcs, 0, data32, lengths, prob_bits, pdfs, use_checksum, cks, plain=plain,
-        lengths_t=lengths_t, batched=batched,
+        lengths_t=lengths_t, batched=batched, tables=tables,
     )
     return arcs, sizes

@@ -12,8 +12,9 @@ per-member-table encode); a single input is a batch of one:
    into a staging row (plain version of ``csrc/encode.cu``);
 2. :func:`write_sections_batched` -- header, probs, final states,
    blockWords and the 16-byte-aligned exclusive prefix, written into the
-   archive buffer (torch glue on either device, as the JAX package keeps it
-   outside any kernel);
+   archive buffer (plain version of the sections kernel in
+   ``csrc/assembly.cu``; the JAX package keeps this step outside any
+   kernel);
 3. :func:`assemble_payload_batched` -- each block's staged words copied to
    its prefix offset (plain version of ``csrc/assembly.cu``).
 
@@ -64,7 +65,8 @@ def encode_scratch_bytes(max_size: int, num_in_batch: int = 1) -> int:
 
 def encode_table(pdf: torch.Tensor) -> torch.Tensor:
     """The kernel's (512,) int32 table: e1 for the 256 symbols, then magic;
-    (B, 512) for a (B, 256) batch of pdfs."""
+    (B, 512) for a (B, 256) batch of pdfs. With ``stats.normalize_probs``,
+    the plain version of the tables kernel (``csrc/stats.cu``)."""
     e1, magic = stats.build_encode_table(pdf)
     return layout.to_i32(torch.cat([e1, magic], -1))
 
@@ -172,16 +174,8 @@ def write_sections_batched(
     """
     B, R = arcs.shape
     dev = arcs.device
-    NBm = counts.shape[0] // B
-    lengths = np.asarray(lengths, dtype=np.int64).reshape(B)
-    base = np.broadcast_to(np.asarray(base32, dtype=np.int64), (B,))
-    nbs = -(-lengths // C.DEFAULT_BLOCK_SIZE)
+    lengths, base, ds32, NBm, span = section_rows(arcs, counts, lengths, base32)
     st32 = base + 136
-    bw32 = st32 + nbs * W
-    ds32 = bw32 + 2 * (nbs + (nbs & 1))
-    span = NBm * W + 2 * C.round_up(NBm, 2)
-    if int(st32.max()) + span > R:
-        raise ValueError("write_sections: the rows are too short for the sections")
     host = section_geometry(lengths, base, prob_bits, use_checksum, dev)
 
     words = counts.view(B, NBm).long()
@@ -217,6 +211,26 @@ def write_sections_batched(
     overflow = (words > MW).any(1)
     sizes = torch.where(overflow, sizes | C.SIZE_OVERFLOW_BIT, sizes)
     return prefix.to(torch.int32), ds32.tolist(), host[8], sizes
+
+
+def section_rows(arcs, counts, lengths, base32):
+    """The host side of the sections of B archives in the rows of `arcs`
+    ((B, R)), as :func:`write_sections_batched` and the sections kernel
+    take them: (lengths and archive u32 offsets as (B,) int64 numpy arrays,
+    the payload u32 offsets ds32 likewise, the blocks a member NBm, the
+    words from the states to the end of the zero tail). Raises ValueError
+    where a row is too short for its sections."""
+    B, R = arcs.shape
+    NBm = counts.shape[0] // B
+    lengths = np.asarray(lengths, dtype=np.int64).reshape(B)
+    base = np.broadcast_to(np.asarray(base32, dtype=np.int64), (B,))
+    nbs = -(-lengths // C.DEFAULT_BLOCK_SIZE)
+    st32 = base + 136
+    ds32 = st32 + nbs * W + 2 * (nbs + (nbs & 1))
+    span = NBm * W + 2 * C.round_up(NBm, 2)
+    if int(st32.max()) + span > R:
+        raise ValueError("write_sections: the rows are too short for the sections")
+    return lengths, base, ds32, NBm, span
 
 
 def section_geometry(lengths, base32, prob_bits, use_checksum, dev):

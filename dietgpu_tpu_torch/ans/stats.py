@@ -4,8 +4,9 @@ Bit-exact twin of ``dietgpu_tpu.ans.stats`` (reference:
 GpuANSStatistics.cuh:179-367), quirks included. u32 values are computed in
 int64; every function works on the device of its inputs and runs as a short
 fixed sequence of tensor ops (no host synchronisation and no copy from the
-host, so a CUDA graph captures it), because the float codec calls it
-between two kernels.
+host, so a CUDA graph captures it). ``normalize_probs`` and
+``build_encode_table`` are the CPU route and the plain version of the
+tables kernel (``csrc/stats.cu``), which computes both on the card.
 """
 
 import torch

@@ -27,9 +27,44 @@
 // The vmapped single assembly of the TPU path and its one-grid
 // per_tile_seed variant write the same bytes; this one launch does both's
 // work. For a float batch the rows are the members' containers.
+//
+// Sections: the archive sections that the assembly fills around, for every
+// member of a batch at once: the 8 header words (the payload's total u16
+// words at word 3, the checksum at word 5), the 128 words of packed u16
+// probabilities, the blocks' final states, and the blockWords pairs
+// ((uncompressed bytes << 16) | words, the block's payload offset), with
+// the exclusive prefix of the 8-rounded word counts that the assembly
+// kernel takes and each archive's byte size.
+//
+// Replaces: no Pallas kernel. The JAX package writes the sections as XLA
+// ops (dietgpu_tpu/ans/pallas_encode.py:_encode_stage2's prefill); the port
+// ran them as ~60 torch ops (ans/encode.py:write_sections_batched), which
+// stays the CPU route and the kernel's plain version, and whose words this
+// kernel writes one for one, the words past a short member's sections
+// included.
+//
+// Bound on the H100: bytes, mostly the states (128 bytes a block read and
+// written; path A's member has 32,768 blocks, 4 MiB).
+//
+// Design: a 1-D grid over tiles of 256 blocks of each member, a thread a
+// block, so one member's states spread over the card (path A: 128 CTAs).
+// A tile's prefix is the sum of the 8-rounded counts before it, read by
+// the tile itself with 16-byte loads, 8 in flight a thread (at most the
+// member's counts, 128 KiB at path A, from L2), then a block scan within
+// the tile: no scratch, no order between CTAs, one launch. The last tile
+// of path A's member, which reads the most, sets the kernel's time
+// (~10 us; a bound of 2.7 us). Each word of the region a member's
+// sections cover has one writer: the tile of its block writes the block's
+// states and its two words of the zero tail, except the words the
+// blockWords take (a short member's blockWords lie over the states of its
+// blocks past its length), and the member's last tile, which alone knows
+// the total and sees every count, writes the header, the probabilities and
+// the size.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "byte_hist.cuh"
 
 namespace {
 
@@ -76,6 +111,150 @@ assembly_kernel(const uint4* __restrict__ staged,
              out, (stride32 - d) / 4);
 }
 
+constexpr int kSecThreads = 256;
+constexpr int kSecWarps = kSecThreads / 32;
+constexpr int kTile = kSecThreads;  // blocks a sections CTA, one a thread
+constexpr int kLoads = 8;  // 16-byte loads in flight a thread, reading the counts
+constexpr int kBlockBytes = 4096;
+constexpr int kHeadWords = 8;
+constexpr int kProbWords = 128;
+constexpr long long kSizeOverflowBit = 1ll << 31;
+
+__device__ __forceinline__ long long padded_words(uint32_t w) {
+  return ((long long)w + 7) & ~7ll;
+}
+
+__global__ void __launch_bounds__(kSecThreads)
+sections_kernel(const uint32_t* __restrict__ counts, const uint4* __restrict__ states,
+                const uint32_t* __restrict__ pdfs, const long long* __restrict__ geo,
+                const uint32_t* __restrict__ checksums, long long batch, long long nbm,
+                long long ntiles, uint32_t* __restrict__ arcs, long long stride32,
+                int* __restrict__ prefix, long long* __restrict__ sizes) {
+  __shared__ long long s_warp[kSecWarps];
+  const int t = threadIdx.x;
+  const long long m = blockIdx.x / ntiles;
+  const long long tile = blockIdx.x % ntiles;
+  const bool last = tile == ntiles - 1;
+  const long long b0 = tile * kTile;
+  const long long b1 = b0 + kTile < nbm ? b0 + kTile : nbm;
+
+  // the 8-rounded counts of the member's blocks before the tile, and
+  // whether one of them overflowed
+  long long before = 0;
+  int over = 0;
+  {
+    const long long g0 = m * nbm, g1 = g0 + b0;  // indices into counts
+    const long long a = (g0 + 3) & ~3ll;
+    const long long e = g1 & ~3ll;
+    if (a >= e) {
+      for (long long i = g0 + t; i < g1; i += kSecThreads) {
+        before += padded_words(counts[i]);
+        over |= counts[i] > (uint32_t)kMaxWords;
+      }
+    } else {
+      if (t < a - g0) {
+        before += padded_words(counts[g0 + t]);
+        over |= counts[g0 + t] > (uint32_t)kMaxWords;
+      }
+      if (t < g1 - e) {
+        before += padded_words(counts[e + t]);
+        over |= counts[e + t] > (uint32_t)kMaxWords;
+      }
+      const uint4* v = reinterpret_cast<const uint4*>(counts + a);
+      const long long nv = (e - a) / 4;
+      // kLoads loads in flight a thread: the last tile of path A's member
+      // reads 8,128 of them
+      for (long long i0 = t; i0 < nv; i0 += kLoads * kSecThreads) {
+        uint4 c[kLoads];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const long long i = i0 + (long long)k * kSecThreads;
+          c[k] = i < nv ? v[i] : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          before += padded_words(c[k].x) + padded_words(c[k].y) + padded_words(c[k].z) +
+                    padded_words(c[k].w);
+          const uint32_t hi = max(max(c[k].x, c[k].y), max(c[k].z, c[k].w));
+          over |= hi > (uint32_t)kMaxWords;
+        }
+      }
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1) before += __shfl_xor_sync(0xffffffffu, before, d);
+  if (t % 32 == 0) s_warp[t / 32] = before;
+  __syncthreads();
+  before = 0;
+#pragma unroll
+  for (int w = 0; w < kSecWarps; ++w) before += s_warp[w];
+  __syncthreads();  // every thread has read s_warp
+
+  // the thread's block: its payload offset and its blockWords pair
+  const long long j = b0 + t;
+  const uint32_t w = j < b1 ? counts[m * nbm + j] : 0u;
+  over = __syncthreads_or(over | (w > (uint32_t)kMaxWords));
+  long long tile_sum;
+  const long long pre_j =
+      before + dtt::block_scan<kSecThreads>(padded_words(w), s_warp, &tile_sum) -
+      padded_words(w);
+  const long long* gm = geo + m;  // the member's column of the (12, batch) geometry
+  const long long len = gm[2 * batch];
+  const long long bw32 = gm[9 * batch];
+  const long long base = gm[11 * batch];
+  const long long st32 = base + kHeadWords + kProbWords;
+  uint32_t* row = arcs + m * stride32;
+  if (j < b1) {
+    prefix[m * nbm + j] = (int)pre_j;
+    long long unc = len - j * kBlockBytes;
+    unc = unc < 0 ? 0 : (unc > kBlockBytes ? kBlockBytes : unc);
+    row[bw32 + 2 * j] = (uint32_t)((unc << 16) | w);
+    row[bw32 + 2 * j + 1] = unc > 0 ? (uint32_t)pre_j : 0u;
+  }
+
+  // the tile's states and zero tail, but for the words the blockWords take
+  const long long bw_end = bw32 + 2 * nbm;
+  const long long s0 = st32 + 32 * b0;  // a multiple of 4
+  uint4* out = reinterpret_cast<uint4*>(row + s0);
+  const uint4* src = states + (m * nbm + b0) * 8;
+  const long long nvec = (b1 - b0) * 8;
+  for (long long i = t; i < nvec; i += kSecThreads) {
+    const long long p = s0 + 4 * i;
+    const uint4 v = src[i];
+    if (p + 4 <= bw32 || p >= bw_end) {
+      out[i] = v;
+    } else {
+      const uint32_t h[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (p + q < bw32 || p + q >= bw_end) row[p + q] = h[q];
+      }
+    }
+  }
+  // two tail words a block, and the pair that rounds an odd nbm up
+  const long long z0 = st32 + 32 * nbm + 2 * b0;
+  const long long nz = 2 * (b1 - b0) + (last ? 2 * (nbm & 1) : 0);
+  for (long long i = t; i < nz; i += kSecThreads) {
+    const long long p = z0 + i;
+    if (p < bw32 || p >= bw_end) row[p] = 0u;
+  }
+
+  // the member's header, probabilities and size
+  if (last) {
+    const long long total = before + tile_sum;
+    if (t < kHeadWords) {
+      long long v = gm[t * batch];
+      if (t == 3) v = total;
+      if (t == 5 && checksums != nullptr) v = checksums[m];
+      row[base + t] = (uint32_t)v;
+    }
+    if (t < kProbWords) {
+      const uint32_t* p = pdfs + m * 256 + 2 * t;
+      row[base + kHeadWords + t] = p[0] | (p[1] << 16);
+    }
+    if (t == 0) sizes[m] = (gm[10 * batch] + 2 * total) | (over ? kSizeOverflowBit : 0);
+  }
+}
+
 }  // namespace
 
 // staged (2560 u16 per block, 16-byte aligned), counts (u32 words per
@@ -95,4 +274,48 @@ extern "C" int dtt_assemble(const void* staged, const void* counts,
         stride32, ds, static_cast<const long long*>(ds32));
   }
   return (int)cudaGetLastError();
+}
+
+// The sections of `batch` archives, archive m at u32 offset geo[11][m] of
+// row m of arcs (stride32 u32 a row, 16-byte aligned, stride32 % 4 == 0).
+// counts (u32 words) and states (32 u32, 16-byte aligned) hold batch * nbm
+// rows, member m's block b at row m * nbm + b; pdfs is `batch` rows of 256
+// u32 weights; geo is the (12, batch) int64 geometry of
+// ans/encode.py:section_geometry (header words, lengths, blockWords and
+// pre-payload offsets, archive offsets, each a multiple of 4 u32);
+// checksums (u32) is null for archives without one. Writes prefix
+// (batch * nbm int32) and sizes (batch int64 bytes, bit 31 set where a
+// block overflowed).
+extern "C" int dtt_sections(const void* counts, const void* states, const void* pdfs,
+                            const void* geo, const void* checksums, long long batch,
+                            long long nbm, void* arcs, long long stride32, void* prefix,
+                            void* sizes, void* stream) {
+  if (nbm > 0 && batch > 0) {
+    const long long ntiles = (nbm + kTile - 1) / kTile;
+    sections_kernel<<<(unsigned)(batch * ntiles), kSecThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(counts), static_cast<const uint4*>(states),
+        static_cast<const uint32_t*>(pdfs), static_cast<const long long*>(geo),
+        static_cast<const uint32_t*>(checksums), batch, nbm, ntiles,
+        static_cast<uint32_t*>(arcs), stride32, static_cast<int*>(prefix),
+        static_cast<long long*>(sizes));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The sections kernel's resources, into out[0..5] as the other sources
+// report them.
+extern "C" int dtt_sections_resources(int config, int* out) {
+  (void)config;  // one configuration
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, sections_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sections_kernel, kSecThreads, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = kSecThreads;
+  out[5] = per_sm;
+  return (int)e;
 }

@@ -13,8 +13,9 @@ reference's (GpuFloatCompress.cuh:420-427, GpuFloatUtils.cuh:181-203):
 held as an int32 buffer whose little-endian bytes are the container.
 
 Compress runs the split kernel (which writes the raw planes straight into
-the container), quantizes the exponent histogram, then encodes the
-exponent plane into the container right after the planes. Decompress is
+the container), the tables kernel (the exponent histogram's weights and
+encode table), then encodes the exponent plane into the container right
+after the planes. Decompress is
 one fused decode+join kernel on the container. float_compress_batched and
 float_decompress_batched do the same for B members of ragged lengths, rows
 of one buffer, with one launch of each kernel; a single tensor is a batch
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ans import cuda_decode, cuda_encode, layout, stats
+from ..ans import cuda_decode, cuda_encode, layout
 from ..ans import encode as ans_encode
 from ..profiling import annotate, host_read
 from . import cuda_float
@@ -281,14 +282,14 @@ def _compress_batched(words, length, float_type, prob_bits, use_checksum, plain,
                 lengths_t=lengths_t,
             )
     with annotate("float.stats", cuda):
-        pdfs = stats.normalize_probs(hist, n, prob_bits)
+        pdfs, tables = cuda_encode.quantize(hist, n, prob_bits, plain)
     if use_checksum:
         arcs[:, 3] = cks
 
     with annotate("float.ans_encode", cuda):
         ans_sizes = cuda_encode.ans_encode_batched_into(
             arcs, base32, exp32, lengths, prob_bits, pdfs, plain=plain, lengths_t=lengths_t,
-            batched=batched,
+            batched=batched, tables=tables,
         )
     return arcs, ans_sizes + 4 * base_t
 

@@ -6,17 +6,16 @@ the codec on every device's shard under shard_map; here each rank calls
 the mesh index. With `shared_stats` the ranks' histograms are summed with
 one all-reduce, so every shard of one logical tensor is encoded with one
 probability table (the "broadcast prob tables" collective mode). Tensors
-on the card go through the histogram, encode, assembly and decode kernels,
-CPU tensors through their plain versions.
+on the card go through the histogram, tables, encode, sections, assembly
+and decode kernels, CPU tensors through their plain versions.
 """
 
 import torch
 import torch.distributed as dist
 
 from .. import constants as C
-from ..ans import stats
 from ..ans.cuda_decode import ans_decode_padded
-from ..ans.cuda_encode import ans_encode_padded
+from ..ans.cuda_encode import ans_encode_padded, quantize
 from ..ans.cuda_hist import histogram_u8
 from .runtime import check_device, resolve_group
 
@@ -61,8 +60,9 @@ def shard_compress(
         torch.full((1,), length, dtype=torch.int64, device=data.device),
     ])
     dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
-    pdf = stats.normalize_probs(counts[: C.NUM_SYMBOLS], counts[C.NUM_SYMBOLS], prob_bits)
-    return ans_encode_padded(data, length, prob_bits, precomputed_pdf=pdf)
+    pdfs, _ = quantize(counts[None, : C.NUM_SYMBOLS], counts[C.NUM_SYMBOLS:], prob_bits,
+                       plain=not data.is_cuda)
+    return ans_encode_padded(data, length, prob_bits, precomputed_pdf=pdfs[0])
 
 
 def shard_decompress(

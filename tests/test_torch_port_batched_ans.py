@@ -410,8 +410,9 @@ def test_resource_entries_match_the_c_signatures():
     entry writes."""
     import re
 
-    assert set(_build._RESOURCES) == {"split", "split_f32", "hist", "encode", "decode",
-                                      "decode_f32", "decode_raw", "join", "join_f32"}
+    assert set(_build._RESOURCES) == {"split", "split_f32", "hist", "tables", "encode",
+                                      "sections", "decode", "decode_f32", "decode_raw",
+                                      "join", "join_f32"}
     for name, (source, sym, config) in _build._RESOURCES.items():
         text = (_build.CSRC / f"{source}.cu").read_text()
         params = re.search(rf'extern "C" int {sym}\(([^)]*)\)', text).group(1)

@@ -21,7 +21,9 @@ On the CPU:
 The tests marked `gpu` capture every entry point at a small size, with and
 without the checksum, for equal and ragged lengths and B = 1 and B > 1,
 after an eager warm-up under ``torch.cuda.set_sync_debug_mode("error")``,
-and hold each replay against an eager call on the same input, bit for bit.
+and hold each replay against an eager call on the same input, bit for bit;
+a captured compress records each of its kernels once, the tables and
+sections kernels included.
 """
 
 import numpy as np
@@ -302,7 +304,8 @@ def test_float_codec_captures_on_card(cuda_device, ft, B, ragged, ck):
         def comp(w):
             return port.float_compress_batched(w, lengths, ft, 10, ck)
     got = capture_check(comp, static, inputs, archives_view)
-    want = {"split_f32" if ft == FP32 else "split": 1, "encode": 1, "assembly": 1}
+    want = {"split_f32" if ft == FP32 else "split": 1, "tables": 1, "encode": 1,
+            "sections": 1, "assembly": 1}
     assert got == want
     arcs = [(comp(*x)[0].clone(),) for x in inputs]
     if B == 1 and not ragged:
@@ -332,7 +335,7 @@ def test_raw_codec_captures_on_card(cuda_device, B, ragged, ck):
         def comp(d):
             return port.ans_encode_batched(d, lengths, None, 10, ck)
     got = capture_check(comp, (inputs[0][0].clone(),), inputs, archives_view)
-    assert got == {"hist": 1, "encode": 1, "assembly": 1}
+    assert got == {"hist": 1, "tables": 1, "encode": 1, "sections": 1, "assembly": 1}
     arcs = [(comp(*x)[0].clone(),) for x in inputs]
     if B == 1 and not ragged:
         def dec(a):
@@ -350,7 +353,8 @@ def test_given_pdfs_histogram_joins_and_info_capture_on_card(cuda_device):
     pdfs = stats.normalize_probs(torch.bincount(data[0][0][0].long(), minlength=256), L, 10)
     pdfs = torch.stack([pdfs, pdfs])
     assert capture_check(lambda d: port.ans_encode_batched(d, [L, L - 5], pdfs, 10),
-                         (data[0][0].clone(),), data, archives_view) == {"encode": 1, "assembly": 1}
+                         (data[0][0].clone(),), data, archives_view) == {
+        "tables": 1, "encode": 1, "sections": 1, "assembly": 1}
     for ck in (False, True):
         assert capture_check(lambda d: port.histogram_u8(d[0], L - 3, ck),
                              (data[0][0].clone(),), data,

@@ -151,8 +151,8 @@ def test_convenience_entry_points_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         port.float_decompress(arc)
     assert set(port.kernel_launches()) == {
-        "split", "split_f32", "hist", "encode", "assembly", "decode", "decode_f32",
-        "decode_raw", "join", "join_f32",
+        "split", "split_f32", "hist", "tables", "encode", "sections", "assembly", "decode",
+        "decode_f32", "decode_raw", "join", "join_f32",
     }
 
 
