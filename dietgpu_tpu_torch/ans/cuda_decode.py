@@ -20,8 +20,9 @@ may be ragged; each member's comes from its own header.
 
 The kernel parses the headers and builds the decode LUT on the device, so
 the decode needs no host round trip; the plain versions do the same in
-torch. A CUDA tensor goes through the kernel; a CPU tensor through the
-plain version.
+torch. The raw entry points run inside the span ``ans.decode``; the float
+decode runs inside its caller's ``float.fused_decode_join[_f32]``. A CUDA
+tensor goes through the kernel; a CPU tensor through the plain version.
 """
 
 import numpy as np
@@ -30,7 +31,7 @@ import torch
 from .. import _build
 from .. import constants as C
 from ..floatcodec import split
-from ..profiling import host_read
+from ..profiling import annotate, host_read
 from . import checksum, layout
 from . import decode as plain_decode
 
@@ -183,12 +184,13 @@ def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
         if archive.dim() != 1 or archive.shape[0] % 4:
             raise ValueError("ans decode: a byte archive must be 1-D with A % 4 == 0")
         arc32 = layout.u8_to_u32le(archive.contiguous())
-    if arc32.is_cuda:
-        out32, success, size, digest = (x[0] for x in decode_raw_batched_cuda(
-            arc32[None], prob_bits, out_max, None, verify_checksum))
-    else:
-        out32, success, size, digest = decode_raw_plain(arc32, prob_bits, out_max,
-                                                        verify_checksum)
+    with annotate("ans.decode", arc32.is_cuda):
+        if arc32.is_cuda:
+            out32, success, size, digest = (x[0] for x in decode_raw_batched_cuda(
+                arc32[None], prob_bits, out_max, None, verify_checksum))
+        else:
+            out32, success, size, digest = decode_raw_plain(arc32, prob_bits, out_max,
+                                                            verify_checksum)
     checksum_ok = torch.ones((), dtype=torch.bool, device=arc32.device)
     if verify_checksum and arc32.shape[0] >= 6:
         opts, stored = layout.to_u32(arc32[4:6]).unbind()
@@ -329,7 +331,8 @@ def ans_decode_batched(archives, prob_bits, out_max, static_nb=None, verify_chec
             raise ValueError("ans decode: a byte batch must be (B, A) with A % 4 == 0")
         arcs = archives.contiguous().view(torch.int32)
     fn = decode_raw_batched_cuda if arcs.is_cuda else decode_raw_batched_plain
-    out32, success, size, digest = fn(arcs, prob_bits, out_max, static_nb, verify_checksum)
+    with annotate("ans.decode", arcs.is_cuda):
+        out32, success, size, digest = fn(arcs, prob_bits, out_max, static_nb, verify_checksum)
     checksum_ok = torch.ones(arcs.shape[0], dtype=torch.bool, device=arcs.device)
     if verify_checksum and arcs.shape[1] >= 6:
         opts, stored = layout.to_u32(arcs[:, 4:6]).unbind(1)

@@ -16,7 +16,7 @@ Every step works on B members, rows of one (B, L/4) buffer, each with its
 own table and length, with one launch of each kernel whatever B is (the
 per-member-table encode and the batched assembly). A single input is a
 batch of one: :func:`ans_encode_padded` and :func:`ans_encode_batched`
-run the same code.
+run the same code. The histogram pass runs inside the span ``ans.hist``.
 """
 
 import torch
@@ -336,7 +336,8 @@ def _encode_batched(datas, length, pdfs, prob_bits, use_checksum, plain, batched
             cuda_hist.histogram_u8_batched_plain if plain
             else cuda_hist.histogram_u8_batched_cuda
         )
-        h, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
+        with annotate("ans.hist", data32.is_cuda):
+            h, cks = hist_fn(data32, lengths, use_checksum, lengths_t)
         hist = h if hist is None else hist
     tables = None
     if pdfs is None:

@@ -52,7 +52,7 @@ from .ans import cuda_decode, cuda_encode, layout
 from .ans import decode as ans_decode
 from .ans import encode as ans_encode
 from .floatcodec import codec
-from .profiling import entry, host_read
+from .profiling import COPY_BYTES, count, entry, host_read
 
 _FLOAT_TYPE = {
     torch.float16: C.FLOAT_TYPE_FLOAT16,
@@ -105,15 +105,18 @@ def _view_as(t: torch.Tensor, dtype) -> torch.Tensor:
 # the same-width integer dtypes that carry the bits of those a fused copy
 # must not take as they are: on the card it copies f16/bf16 through float,
 # which rewrites every NaN as 0x7FFF where a lossless codec keeps each
-# payload, and torch has few kernels for unsigned and bool tensors
+# payload, and torch has few kernels for unsigned, bool and float8 tensors
 _BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
          torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64,
-         torch.bool: torch.uint8}
+         torch.bool: torch.uint8, torch.float8_e4m3fn: torch.uint8,
+         torch.float8_e5m2: torch.uint8, torch.float8_e4m3fnuz: torch.uint8,
+         torch.float8_e5m2fnuz: torch.uint8}
 
 
 def as_bits(t: torch.Tensor) -> torch.Tensor:
     """`t` as its same-width integer dtype where torch ops would not carry
-    its bits as they are (f16/bf16, unsigned, bool); else `t` itself."""
+    its bits as they are (f16/bf16, unsigned, bool, float8); else `t`
+    itself."""
     return t.view(_BITS[t.dtype]) if t.dtype in _BITS else t
 
 
@@ -121,8 +124,10 @@ def copy_bits_(dsts: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> No
     """dsts[m] = srcs[m] bit for bit, in one fused copy, through
     :func:`as_bits` (a view costs the host about a microsecond, so only
     the members that need one are viewed: pass sources already in their
-    integer dtype where the caller has them so)."""
+    integer dtype where the caller has them so). Counts the bytes written
+    as ``copy_bytes``."""
     if dsts:
+        count(COPY_BYTES, sum(d.numel() * d.element_size() for d in dsts))
         torch._foreach_copy_([as_bits(d) for d in dsts], [as_bits(s) for s in srcs])
 
 
@@ -137,7 +142,9 @@ def _rows(rows: Sequence[torch.Tensor], width: int) -> torch.Tensor:
     """Flat tensors of one dtype -> (B, width), row m holding rows[m]
     (truncated to width) and zeros after it: one stack when every row
     fills the width, else one fused copy of every row into a zeroed
-    buffer."""
+    buffer. Counts the bytes the stack or the zero fill writes as
+    ``copy_bytes``, and :func:`copy_bits_` those of the copy."""
+    count(COPY_BYTES, len(rows) * width * rows[0].element_size())
     if all(r.numel() == width for r in rows):
         return torch.stack(list(rows))
     rows = [r if r.numel() <= width else r[:width] for r in rows]
@@ -393,7 +400,10 @@ def decompress_members(
         res = cuda_decode.ans_decode_batched(arcs, prob_bits, L, None, checksum)
         out = res["out"]
         sizes_bytes = layout.to_i32(res["size"])
-    ok = res["success"] & (res["size"] <= torch.tensor(caps, dtype=torch.int64, device=dev))
+    # the capacities as a scalar, or as a device constant: a tensor made from
+    # host ints here would copy from pageable memory, which waits for the decode
+    cap = caps[0] if all(c == caps[0] for c in caps) else layout.lengths_tensor(caps, dev)
+    ok = res["success"] & (res["size"] <= cap)
     dtypes = [_BITS.get(t.dtype, t.dtype) if bits else t.dtype for t in ts_out]
     if len(set(dtypes)) == 1:
         views = _row_views(_view_as(out, dtypes[0]), [t.numel() for t in ts_out])

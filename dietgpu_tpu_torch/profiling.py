@@ -17,7 +17,9 @@ profilerStart/profilerStop, utils/DeviceUtils.cpp:48-54):
     Systems, run the code inside ``torch.autograd.profiler.emit_nvtx()``,
     which turns them on. The codec wraps its stages in spans under the JAX
     package's names (split, stats, encode kernel, sections, assembly,
-    fused decode+join); the front end's public entry points run inside
+    fused decode+join), and the byte path's histogram pass and raw decode
+    in ``ans.hist`` and ``ans.decode``, which the JAX package leaves
+    unlabelled; the front end's public entry points run inside
     ``front.compress`` / ``front.decompress`` (:func:`entry`), and each
     collective's stages inside ``collective.compress``, ``.vote``,
     ``.exchange`` and ``.decode``.
@@ -37,7 +39,9 @@ profilerStart/profilerStop, utils/DeviceUtils.cpp:48-54):
   * Counters: :func:`count` adds to a named counter, and to the innermost
     open span's record. ``_build.launch`` counts each kernel launch under
     ``launch.<kernel>``; :func:`host_read` is the one way the program
-    reads a tensor's values to the host, and counts ``host_reads``.
+    reads a tensor's values to the host, and counts ``host_reads``; the
+    front end's copies (``api._rows``, ``api.copy_bits_``) count the device
+    bytes they write as ``copy_bytes``.
   * ``read_trace(logdir)`` and ``stage_account(events)`` read a capture
     back and attribute its host and device time to the stages.
 
@@ -73,6 +77,7 @@ _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 SPAN_LIMIT = 65536  # the ring keeps the last this many spans
 SPANS_DIR_ENV = "DIETGPU_SPANS_DIR"
 HOST_READS = "host_reads"
+COPY_BYTES = "copy_bytes"
 SPAN_FIELDS = ("id", "name", "parent", "call", "start_ns", "end_ns", "thread", "profiler",
                "counts")
 

@@ -115,7 +115,9 @@ def compress_data_simple(
 
 def _write_ok(dsts, srcs, status) -> None:
     """Copy each decoded member (in its integer dtype) into its destination
-    where status is 1, in one fused copy."""
+    where status is 1, in one fused copy. The members' bit views are made
+    before the status read, while the card still decodes."""
+    dsts, srcs = [api.as_bits(d) for d in dsts], [api.as_bits(s) for s in srcs]
     keep = [m for m, ok in enumerate(host_read(status).tolist()) if ok]
     api.copy_bits_([dsts[m] for m in keep], [srcs[m] for m in keep])
 

@@ -2,8 +2,10 @@
 (``dietgpu_tpu_torch.profiling``) on the CPU, and one case on the card.
 
 The stage names are the JAX package's, letter for letter: they are read
-with ``ast`` from its ``annotate`` calls and must equal the set that CPU
-profiles of the port's entry points show. Each entry point's profile must
+with ``ast`` from its ``annotate`` calls and, with the port's two spans of
+the byte path that the JAX package leaves unlabelled (its histogram pass
+and its raw decode), must equal the set that CPU profiles of the port's
+entry points show. Each entry point's profile must
 show every stage its path reaches, nested as in the JAX package, and the
 capture must raise where ``jax.profiler`` does. The recorder keeps nothing
 while it is off, keeps the front end's call as one tree of spans with its
@@ -35,6 +37,7 @@ LW = 3 * 4096
 FLOAT = {"float.split", "float.stats", "float.ans_encode"}
 ANS = {"ans.encode_kernel", "ans.sections", "ans.assembly"}
 ANS_BATCHED = {n + "_batched" for n in ANS}
+PORT_ONLY = {"ans.hist", "ans.decode"}  # the byte path's, unlabelled in the JAX package
 
 
 def _jax_stage_names() -> set:
@@ -65,6 +68,8 @@ def _paths():
     arc32, _ = port.float_compress_padded(f32, n, F32)
     arcs16, _ = port.float_compress_batched(torch.stack([bf16, bf16]), n, BF16)
     arcs32, _ = port.float_compress_batched(torch.stack([f32, f32]), n, F32)
+    arc_raw, _ = port.ans_encode_padded(raw, n)
+    arcs_raw, _ = port.ans_encode_batched(torch.stack([raw, raw]), [n, 3])
     return {
         "bf16 compress": (lambda: port.float_compress_padded(bf16, n, BF16), FLOAT | ANS),
         "f32 compress": (lambda: port.float_compress_padded(f32, n, F32, 10, True), FLOAT | ANS),
@@ -79,9 +84,12 @@ def _paths():
                                    {"float.fused_decode_join_f32"}),
         "batched bf16 decompress": (lambda: port.float_decompress_batched(arcs16, BF16, LW),
                                     {"float.fused_decode_join"}),
-        "raw encode": (lambda: port.ans_encode_padded(raw, n, 10, True), ANS),
+        "raw encode": (lambda: port.ans_encode_padded(raw, n, 10, True), ANS | {"ans.hist"}),
         "raw batched encode": (lambda: port.ans_encode_batched(torch.stack([raw, raw]), [n, 3]),
-                               ANS_BATCHED),
+                               ANS_BATCHED | {"ans.hist"}),
+        "raw decode": (lambda: port.ans_decode_padded(arc_raw, 10, LW), {"ans.decode"}),
+        "raw batched decode": (lambda: port.ans_decode_batched(arcs_raw, 10, LW),
+                               {"ans.decode"}),
     }
 
 
@@ -98,17 +106,18 @@ def _profile(tmp_path, fn):
 def test_stage_names_equal_the_jax_packages(tmp_path):
     jax_names = _jax_stage_names()
     assert len(jax_names) == 11, jax_names
+    assert not jax_names & PORT_ONLY
     seen = set()
     for path, (call, _) in _paths().items():
         rows, _ = stage_account(_profile(tmp_path / path.replace(" ", "_"), call))
         seen |= set(rows) - {OUTSIDE}
-    assert seen == jax_names
+    assert seen == jax_names | PORT_ONLY
 
 
 @pytest.mark.parametrize("path", [
     "bf16 compress", "f32 compress", "bf16 decompress", "f32 decompress",
     "batched bf16 compress", "batched f32 decompress", "batched bf16 decompress",
-    "raw encode", "raw batched encode"])
+    "raw encode", "raw batched encode", "raw decode", "raw batched decode"])
 def test_profile_shows_each_stage_of_the_path(tmp_path, path):
     call, want = _paths()[path]
     events = _profile(tmp_path, call)
