@@ -143,7 +143,11 @@ result line:
                ms (and, for the histogram, torch.bincount's; the tables
                and sections kernels, whose wrappers' host code outlasts
                them, timed from a CUDA graph of 20 calls), and a
-               measured copy_ of path A's bytes;
+               measured copy_ of path A's bytes; the decode kernel's
+               descriptor form (archives read where they lie, members
+               written into their destinations) at path A's shape and at
+               one DeepSeek-V3 EP32 expert layer's (24 x 14,680,064 e4m3
+               bytes at the API's decode width), beside its strided form;
    captured -- paths A-F, H and Hf (through the batched entry points at
                path H's lengths) compress and decompress, and path J's
                two joins, each captured once in a CUDA graph at full
@@ -222,6 +226,7 @@ BATCH = 128  # paths D and E, members (the reference's 128-way batch)
 MEMBER_WORDS = 1 << 19  # paths D and E, words per member
 RAW_MEMBERS = 64  # path F, members (BASELINE.json config 2)
 RAW_CAP = 1 << 22  # path F, bytes of capacity per member; lengths in [CAP/4, CAP]
+EXPERTS = (24, 14_680_064)  # path M: one EP32 rank's expert matrices of a MoE layer, bytes
 RAGGED_MEMBERS = 64  # path H, members
 RAGGED_WORDS = (1 << 19, 1 << 21)  # path H, word counts drawn in this range
 ITERS = 20  # timed iterations per measurement
@@ -314,6 +319,19 @@ KERNELS = {
     "split_f32_ragged": (
         "dietgpu_tpu_torch/csrc/split_f32.cu",
         "dietgpu_tpu/floatcodec/pallas_float.py:288", 12, "Hf", "split_f32",
+    ),
+    # the descriptor form at path A's shape, and both forms at path M's
+    "decode_members": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "M", "decode",
+    ),
+    "decode_raw_experts": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "M", "decode_raw",
+    ),
+    "decode_raw_members": (
+        "dietgpu_tpu_torch/csrc/decode.cu",
+        "dietgpu_tpu/ans/pallas_decode.py:392", 16, "M", "decode_raw",
     ),
     "join": (
         "dietgpu_tpu_torch/csrc/join.cu",
@@ -1498,6 +1516,105 @@ def raw_batch_path(port, data, lengths, err):
                  lambda: cuda_hist.histogram_u8_batched_plain(d32, lengths)),
         "decode": (lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, L),
                    lambda: cuda_decode.decode_raw_batched_plain(arcs, 10, L)),
+    }
+
+
+def member_decode_phase(port, arc, size, n, Lw, ft, dev, err):
+    """Path M: the decode kernel's descriptor form, each archive read where
+    it lies and each member written into its destination, as
+    ``torch_api.decompress_data`` runs it in place: at path A's shape
+    (kHalf, A's exact archive into a bf16 tensor of n words) and at one
+    DeepSeek-V3 EP32 expert layer's (kRaw, EXPERTS e4m3 bytes of N(0,
+    100^2), as a 128x128 block scale leaves weights, each archive a row of
+    the compress buffer, decoded at the API's width into a tensor of its
+    own), beside the strided form at the same width (the archives staged
+    into zero-filled rows). Each form is held bit for bit against the
+    input, the other form and the plain version, and launches the kernel
+    once. Fills err; returns the rows' runs, work and the launches each
+    row's call was counted making."""
+    import torch
+
+    from dietgpu_tpu_torch import api
+    from dietgpu_tpu_torch.ans import cuda_decode
+    from dietgpu_tpu_torch.ans import encode as ans_encode
+
+    def once(fn, kernel):
+        """fn's result, having held that it launched `kernel` once and
+        nothing else, and the counts it made."""
+        torch.cuda.synchronize()
+        port.reset_kernel_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in port.kernel_launches().items() if v}
+        require(got == {kernel: 1}, f"path M launches {got}, not one {kernel}")
+        return out, got
+
+    # kHalf at path A's shape
+    arc_a = arc[: size // 4]
+    dest = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    dest_p = torch.empty_like(dest)
+    members_a = (lambda: cuda_decode.decode_members([arc_a], arc.numel(), Lw, 10, ft, [dest]))
+    plain_a = (lambda: cuda_decode._members_plain([arc_a], arc.numel(), Lw, 10, ft, [dest_p]))
+    (_, st), got_a = once(members_a, "decode")
+    ok, sz, _ = cuda_decode.status_fields(st)
+    strided = cuda_decode.decode_float_batched_cuda(arc[None], ft, Lw, 10)
+    want_a = strided[0][0].view(torch.int16)[:n]
+    require(bool(ok.all()) and sz.tolist() == [n] and bool(strided[1].all()),
+            "path M kHalf status")
+    _, st_p = plain_a()
+    err["decode_members"] = require_exact(
+        "decode_members (kHalf), path A shape",
+        [(dest.view(torch.int16), want_a), (dest_p.view(torch.int16), want_a), (st, st_p)])
+    del strided, want_a
+
+    # kRaw at one expert layer's shape
+    XM, XB = EXPERTS
+    gen = torch.Generator(device=dev).manual_seed(19)
+    data = (torch.randn((XM, XB), generator=gen, device=dev) * 100).clamp(-448, 448)
+    data = data.to(torch.float8_e4m3fn).view(torch.uint8)
+    arcs, sizes = port.ans_encode_batched(data, [XB] * XM, None, 10, False)
+    Lx = api._bucket_words(XB)
+    a32 = ans_encode.archive_buffer_bytes(Lx) // 4
+    staged = torch.zeros((XM, a32), dtype=torch.int32, device=dev)
+    staged[:, : arcs.shape[1]] = arcs
+    archives = list(arcs.unbind(0))
+    dests = [torch.empty(XB, dtype=torch.uint8, device=dev) for _ in range(XM)]
+    dests_p = [torch.empty_like(d) for d in dests]
+    strided_x = (lambda: cuda_decode.decode_raw_batched_cuda(staged, 10, Lx))
+    members_x = (lambda: cuda_decode.decode_members(archives, a32, Lx, 10, None, dests))
+    (out_s, ok_s, sz_s, _), got_s = once(strided_x, "decode_raw")
+    (_, st_m), got_m = once(members_x, "decode_raw")
+    ok_m, sz_m, _ = cuda_decode.status_fields(st_m)
+    require(bool(ok_s.all()) and bool(ok_m.all()) and sz_m.tolist() == [XB] * XM,
+            "path M kRaw status")
+    require(torch.equal(out_s.view(torch.uint8)[:, :XB], data), "path M strided kRaw differs")
+    require(all(torch.equal(d, x) for d, x in zip(dests, data)), "path M kRaw differs")
+    log(f"  path M: {XM} members of {XB} e4m3 bytes, ratio "
+        f"{int(sizes.sum()) / (XM * XB):.6f}, decoded by both forms bit for bit")
+    plain_s = cuda_decode.decode_raw_batched_plain(staged, 10, Lx)
+    err["decode_raw_experts"] = require_exact(
+        "decode_raw_experts (strided), path M shape",
+        [(out_s, plain_s[0]), (ok_s, plain_s[1]), (sz_s, plain_s[2])])
+    del out_s, plain_s
+    torch.cuda.empty_cache()
+    _, st_p = cuda_decode._members_plain(archives, a32, Lx, 10, None, dests_p)
+    err["decode_raw_members"] = require_exact(
+        "decode_raw_members, path M shape", [(torch.stack(dests), torch.stack(dests_p)),
+                                             (st_m, st_p)])
+    del dests_p
+    torch.cuda.empty_cache()
+    arc_bytes = int(sizes.sum())
+    return {
+        "launches": {"decode_members": got_a, "decode_raw_experts": got_s,
+                     "decode_raw_members": got_m},
+        "work": {"decode_members": (size + 2 * n, n),
+                 "decode_raw_experts": (arc_bytes + XM * XB, XM * XB),
+                 "decode_raw_members": (arc_bytes + XM * XB, XM * XB)},
+        "runs": {"decode_members": (members_a, plain_a),
+                 "decode_raw_experts": (strided_x, lambda: cuda_decode.decode_raw_batched_plain(
+                     staged, 10, Lx)),
+                 "decode_raw_members": (members_x, lambda: cuda_decode._members_plain(
+                     archives, a32, Lx, 10, None, [torch.empty_like(d) for d in dests]))},
     }
 
 
@@ -2983,6 +3100,9 @@ def main():
     hf = ragged_f32_path(port, gh["H"][1], dev, err)
     front_end = front_end_forms(port, bat, gh, words_d, data_f, lengths_f, card)
     err["split_f32_uniform"] = err_uniform
+    log("# phase 3: path M, the decode kernel's descriptor form at path A's shape and at one "
+        "expert layer's")
+    mem = member_decode_phase(port, arc, size, n, Lw, ft, dev, err)
 
     launches = {}
     path_launches = {"A": launches_a, "B": launches_b, "C": launches_c, "J": launches_j,
@@ -2990,7 +3110,8 @@ def main():
                      "G": gh["G"][-1], "H": gh["H"][-1], "Hr": gh["Hr"][-1],
                      "Hf": hf["launches"]}
     for k, (_, _, _, path, kernel) in KERNELS.items():
-        launches[k] = path_launches[path][kernel]
+        # path M's counts are each row's own call's
+        launches[k] = (mem["launches"][k] if path == "M" else path_launches[path])[kernel]
 
     # ---- 4. timing ----
     log(f"# phase 4: timing, {ITERS} iterations, CUDA events; card: {card}")
@@ -3165,6 +3286,7 @@ def main():
         # archived ends)
         "split_f32_uniform": (8 * Lw + 4 * 256, Lw),
         "split_f32_ragged": hf["work"],
+        **mem["work"],
     }
     wb = inputs_b[0]
     wu = uniform_words(dev, (1, n), 10)  # phase2_slice10's 128Mi uniform words
@@ -3211,6 +3333,7 @@ def main():
         "split_f32_uniform": (lambda: cuda_float.split_words_f32_batched_cuda(wu, n),
                               lambda: cuda_float.split_words_f32_plain(wu[0], n)),
         "split_f32_ragged": hf["split"],
+        **mem["runs"],
     }
     # one torch call computing the same function, where there is one
     library = {"hist": lambda: torch.bincount(datas[0], minlength=256)}
@@ -3233,7 +3356,7 @@ def main():
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         log(f"  {k:18s} {ms:9.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes} B)  plain {plain_ms:9.2f} ms  launches {launches[k]}{lib}")
-    del runs, wu
+    del runs, wu, mem
     torch.cuda.empty_cache()
 
     # ---- 4. captured: each path's calls in a CUDA graph ----

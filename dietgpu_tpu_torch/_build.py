@@ -71,13 +71,15 @@ _ENTRY = {
     ),
     "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP)),
     "decode": (
-        "decode", "dtt_decode", (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP),
+        "decode", "dtt_decode",
+        (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP, _VP, _VP, _INT),
     ),
     "decode_f32": (
-        "decode", "dtt_decode_f32", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP),
+        "decode", "dtt_decode_f32",
+        (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP, _VP, _VP, _INT),
     ),
     "decode_raw": (
-        "decode", "dtt_decode_raw", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP),
+        "decode", "dtt_decode_raw", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP, _VP, _VP, _INT),
     ),
     "join": ("join", "dtt_join", (_VP, _VP, _LL, _LL, _INT, _VP, _LL, _LL, _LL)),
     "join_f32": ("join", "dtt_join_f32", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _LL, _LL)),

@@ -18,6 +18,14 @@ launch, each member with its own table (counterpart of
 :func:`ans_decode_batched` is the raw-ANS batch entry point. Member sizes
 may be ragged; each member's comes from its own header.
 
+:func:`decode_members` takes the same batch as B archives read where they
+lie, and writes each member into a row of a new buffer or straight into
+a destination of its own: the kernel's descriptor form (one descriptor a
+member, in the launch parameters up to :data:`INLINE` members, else
+copied to the card through pinned memory, which is why a capture takes no
+more: :func:`takes_members`). :func:`ans_decode_members` is its raw-ANS
+entry point.
+
 The kernel parses the headers and builds the decode LUT on the device, so
 the decode needs no host round trip; the plain versions do the same in
 torch. The raw entry points run inside the span ``ans.decode``; the float
@@ -36,6 +44,10 @@ from . import checksum, layout
 from . import decode as plain_decode
 
 FLOAT_TYPES = (*split.HALF_TYPES, C.FLOAT_TYPE_FLOAT32)
+# a member of the kernel's descriptor form (csrc/decode.cu: Desc)
+DESC = np.dtype([("arc", "<u8"), ("out", "<u8"), ("alen", "<u4"), ("cap", "<u4")])
+INLINE = 128  # descriptors a launch carries in its parameters (csrc/decode.cu: kInline)
+U32_LIMIT = 1 << 32  # a descriptor's archive words and output symbols stay below it
 
 
 def _check_archive(arc32, out_max, prob_bits):
@@ -133,8 +145,10 @@ def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
     )
 
 
-def _status(status):
-    st = layout.to_u32(status)
+def status_fields(status):
+    """(success bool, size int64, digest int64), each (B,), from a batch's
+    (B, 3) int32 status words as the kernel writes them."""
+    st = layout.to_u32(status.T)
     return st[0] != 0, st[1], st[2]
 
 
@@ -259,14 +273,14 @@ def decode_float_batched_cuda(
     if f32:
         _build.launch(
             "decode_f32", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
-            prob_bits, sl, snb, int(with_digest), status.data_ptr(),
+            prob_bits, sl, snb, int(with_digest), status.data_ptr(), None, None, 0,
         )
     else:
         _build.launch(
             "decode", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
-            float_type, prob_bits, sl, snb, int(with_digest), status.data_ptr(),
+            float_type, prob_bits, sl, snb, int(with_digest), status.data_ptr(), None, None, 0,
         )
-    return (out32, *_status(status.T))
+    return (out32, *status_fields(status))
 
 
 def decode_float_batched(
@@ -303,8 +317,9 @@ def decode_raw_batched_cuda(arcs, prob_bits, out_max, static_nb=None, with_diges
         "decode_raw", arcs.data_ptr(), B, A32, out32.data_ptr(),
         out_max // C.DEFAULT_BLOCK_SIZE, prob_bits,
         -1 if static_nb is None else static_nb, int(with_digest), status.data_ptr(),
+        None, None, 0,
     )
-    return (out32, *_status(status.T))
+    return (out32, *status_fields(status))
 
 
 def ans_decode_batched(archives, prob_bits, out_max, static_nb=None, verify_checksum=False):
@@ -343,3 +358,152 @@ def ans_decode_batched(archives, prob_bits, out_max, static_nb=None, verify_chec
         "success": success,
         "checksum_ok": checksum_ok,
     }
+
+
+# ---- the descriptor form: B archives read where they lie, one launch ----
+
+
+def symbol_bytes(float_type) -> int:
+    """Bytes of one decoded symbol: a raw byte (float_type None), or a word."""
+    return 1 if float_type is None else C.float_word_size(float_type)
+
+
+def takes_members(archives, outs=None, sym=1) -> bool:
+    """Whether the descriptor form can take these members where they lie:
+    every archive contiguous, 4-byte aligned and whole u32 words; every
+    output, where given, contiguous, aligned to and a whole number of
+    `sym`-byte symbols, fewer than 2^32 of them; and, inside a CUDA graph
+    capture, at most :data:`INLINE` members, since a larger table is
+    copied from host memory that does not outlive the call (as
+    ``layout.device_constant`` refuses)."""
+    if (len(archives) > INLINE and archives[0].is_cuda
+            and torch.cuda.is_current_stream_capturing()):
+        return False
+    if not all(a.is_contiguous() and not (a.data_ptr() | a.nbytes) & 3 for a in archives):
+        return False
+    return outs is None or all(
+        o.is_contiguous() and not (o.data_ptr() % sym or o.nbytes % sym)
+        and o.nbytes < U32_LIMIT * sym for o in outs)
+
+
+def _descriptors(archives, a32, out_max, prob_bits, float_type, outs):
+    """Check a member decode's arguments, and return each member's (archive
+    address, output address or 0 without `outs`, read words, capacity in
+    symbols): the kernel's descriptors (:data:`DESC`)."""
+    if not archives or (outs is not None and len(outs) != len(archives)):
+        raise ValueError("member decode: need B > 0 archives and, if given, B outputs")
+    if float_type is not None:
+        if float_type not in FLOAT_TYPES:
+            raise ValueError(f"decode: float type {float_type} is not f16/bf16/f32")
+        if a32 < 4:
+            raise ValueError("decode: a float container has at least 4 words")
+    if prob_bits not in C.SUPPORTED_PROB_BITS:
+        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
+    if out_max <= 0 or out_max % C.DEFAULT_BLOCK_SIZE or out_max >= U32_LIMIT:
+        raise ValueError(f"decode: capacity {out_max} is not a positive multiple of 4096")
+    if not 0 < a32 < U32_LIMIT:
+        raise ValueError(f"decode: archive row of {a32} words")
+    sym = symbol_bytes(float_type)
+    if not takes_members(archives, outs, sym):
+        raise ValueError("member decode: the members do not meet takes_members")
+    if outs is None:
+        return [(a.data_ptr(), 0, min(a.nbytes >> 2, a32), out_max) for a in archives]
+    if any(o.nbytes > out_max * sym for o in outs):
+        raise ValueError("member decode: an output holds more symbols than the capacity")
+    return [(a.data_ptr(), o.data_ptr(), min(a.nbytes >> 2, a32), o.nbytes // sym)
+            for a, o in zip(archives, outs)]
+
+
+def decode_members(archives, a32, out_max, prob_bits, float_type=None, outs=None):
+    """Decode B archives, each read where it lies, with one launch: the
+    descriptor form of ``csrc/decode.cu``.
+
+    `archives` are B tensors whose bytes are the archives (of any dtype);
+    member m's is read as the row of `a32` u32 that a zero-filled staging
+    buffer of that width would hold: its first min(words, a32) words, then
+    zeros. The archives and outputs must meet :func:`takes_members`, else
+    ValueError.
+    `float_type` None decodes raw ANS archives into `out_max` bytes a
+    member, a float type its containers into `out_max` words (out_max a
+    positive multiple of 4096). `outs` None decodes into a new (B, out_max *
+    symbol bytes / 4) int32 buffer, as the strided batch does; else B
+    tensors, each written in place up to its own size in
+    symbols (zeros past the header's count, as in the buffer), and left as
+    it was where its member fails.
+
+    Returns (out32 or None when `outs` is given, status): status is the
+    kernel's (B, 3) int32 words a member, success (1 where the header's
+    checks pass and its count fits the output), the header's count (its
+    u32 bits) and 0; :func:`status_fields` reads them. Archives on the card
+    go through the kernel, archives on the CPU through its plain
+    version."""
+    descs = _descriptors(archives, a32, out_max, prob_bits, float_type, outs)
+    if archives[0].is_cuda:
+        return _members_cuda(descs, archives[0].device, a32, out_max, prob_bits, float_type,
+                             outs is not None)
+    return _members_plain(archives, a32, out_max, prob_bits, float_type, outs)
+
+
+def _members_cuda(descs, dev, a32, out_max, prob_bits, float_type, in_place):
+    B = len(descs)
+    descs = np.array(descs, DESC)
+    out32 = None
+    if not in_place:  # each member's row of a new buffer
+        row = out_max * symbol_bytes(float_type)
+        out32 = torch.empty((B, row // 4), dtype=torch.int32, device=dev)
+        descs["out"] = out32.data_ptr() + row * np.arange(B, dtype=np.uint64)
+    status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    table = None
+    if B > INLINE:  # one copy on the stream from pinned memory, never inside a capture
+        table = torch.from_numpy(descs.view(np.uint8)).pin_memory().to(dev, non_blocking=True)
+    host = descs.ctypes.data if table is None else None
+    nb_cap = out_max // C.DEFAULT_BLOCK_SIZE
+    tail = (0, status.data_ptr(), host, layout.data_ptr(table), int(in_place))
+    if float_type is None:
+        _build.launch("decode_raw", None, B, a32, None, nb_cap, prob_bits, -1, *tail)
+    elif float_type == C.FLOAT_TYPE_FLOAT32:
+        _build.launch("decode_f32", None, B, a32, None, nb_cap, prob_bits, -1, -1, *tail)
+    else:
+        _build.launch("decode", None, B, a32, None, nb_cap, float_type, prob_bits, -1, -1,
+                      *tail)
+    return out32, status
+
+
+def _members_plain(archives, a32, out_max, prob_bits, float_type, outs):
+    """The plain version: each archive staged into a zero-filled row of
+    a32 words, the strided plain decode, then each succeeding member's
+    symbols copied into its output."""
+    B = len(archives)
+    dev = archives[0].device
+    rows = torch.zeros((B, a32), dtype=torch.int32, device=dev)
+    row_bytes = rows.view(torch.uint8)
+    for m, a in enumerate(archives):
+        n = min(a.nbytes, 4 * a32)
+        row_bytes[m, :n] = layout.as_bytes(a)[:n]
+    if float_type is None:
+        out32, success, size, _ = decode_raw_batched_plain(rows, prob_bits, out_max)
+    else:
+        out32, success, size, _ = decode_float_batched_plain(rows, float_type, out_max,
+                                                             prob_bits)
+    dsts = None if outs is None else [layout.as_bytes(o) for o in outs]
+    caps = out_max if outs is None else torch.tensor(
+        [d.numel() // symbol_bytes(float_type) for d in dsts], device=dev)
+    success = success & (size <= caps)
+    status = torch.stack([success.to(torch.int32), size.to(torch.int32),
+                          torch.zeros_like(size, dtype=torch.int32)], 1)
+    if outs is None:
+        return out32, status
+    for m, ok in enumerate(host_read(success, plain=True).tolist()):
+        if ok:
+            dsts[m].copy_(out32[m].view(torch.uint8)[: dsts[m].numel()])
+    return None, status
+
+
+def ans_decode_members(archives, a32, prob_bits, out_max, outs=None):
+    """:func:`ans_decode_batched` of B raw ANS archives read where they lie
+    (:func:`decode_members`), with no checksum; `outs` as there. Returns
+    dict: out ((B, out_max) uint8, or None with `outs`) and status, the
+    (B, 3) int32 words that :func:`status_fields` reads."""
+    with annotate("ans.decode", archives[0].is_cuda):
+        out32, status = decode_members(archives, a32, out_max, prob_bits, None, outs)
+    return {"out": None if out32 is None else out32.view(torch.uint8), "status": status}

@@ -41,6 +41,16 @@ def u32_to_u8le(w: torch.Tensor) -> torch.Tensor:
     return w.view(torch.uint8)
 
 
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of `t`, flat (a view where `t` is contiguous)."""
+    t = t.reshape(-1)
+    if t.dtype == torch.uint8:
+        return t
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.view(torch.uint8)
+
+
 def to_u32(x: torch.Tensor) -> torch.Tensor:
     """Any integer tensor -> int64 holding its low 32 bits as unsigned."""
     return x.to(torch.int64) & U32_MASK

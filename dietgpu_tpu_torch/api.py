@@ -21,12 +21,17 @@ plus the stride forms and the header queries of the JAX package, and
 ``decompress_members``, ``decompress_data`` with each member's verdict
 left on the device (for the checkpoint, which names a failing entry).
 
-A batch is B tensors of any lengths, all on one device. They are gathered
-into the rows of one padded buffer (one copy per member, or one stack when
-the lengths are equal) and go through the batched codec with one launch
-of each kernel: ``float_compress_batched`` / ``float_decompress_batched``
-or ``ans_encode_batched`` / ``ans_decode_batched``. Tensors on the card go
-through the kernels, tensors on the CPU through their plain versions.
+A batch is B tensors of any lengths, all on one device. A compress
+gathers them into the rows of one padded buffer (one copy per member, or
+one stack when the lengths are equal) and goes through the batched codec
+with one launch of each kernel: ``float_compress_batched`` or
+``ans_encode_batched``. A decompress reads each archive where it lies
+(``float_decompress_members`` / ``ans_decode_members``) where the
+archives allow it (``cuda_decode.takes_members``) and no checksum is verified,
+else from such a buffer (``float_decompress_batched`` /
+``ans_decode_batched``), one launch of the decode kernel either way.
+Tensors on the card go through the kernels, tensors on the CPU through
+their plain versions.
 
 Each public compress entry point runs inside the span ``front.compress``
 and each decompress one inside ``front.decompress`` (``profiling``); an
@@ -52,7 +57,7 @@ from .ans import cuda_decode, cuda_encode, layout
 from .ans import decode as ans_decode
 from .ans import encode as ans_encode
 from .floatcodec import codec
-from .profiling import COPY_BYTES, count, entry, host_read
+from .profiling import COPY_BYTES, DIRECT_MEMBERS, count, entry, host_read
 
 _FLOAT_TYPE = {
     torch.float16: C.FLOAT_TYPE_FLOAT16,
@@ -70,17 +75,7 @@ def float_type_of(dtype) -> int:
 
 
 def _byte_length(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
-def _as_u8(t: torch.Tensor) -> torch.Tensor:
-    """The bytes of `t`, flat (a view where `t` is contiguous)."""
-    t = t.reshape(-1)
-    if t.dtype == torch.uint8:
-        return t
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.view(torch.uint8)
+    return t.nbytes
 
 
 def _as_words(t: torch.Tensor) -> torch.Tensor:
@@ -224,7 +219,7 @@ def compress_data(
         arcs, sizes = codec.float_compress_batched(padded, lens, ft, prob_bits, checksum)
         max_size = max(lens) * C.float_word_size(ft)
     else:
-        datas = [_as_u8(t) for t in ts_in]
+        datas = [layout.as_bytes(t) for t in ts_in]
         lens = [d.numel() for d in datas]
         padded = _rows(datas, _padded_width(max(lens)))
         arcs, sizes = cuda_encode.ans_encode_batched(padded, lens, None, prob_bits, checksum)
@@ -365,6 +360,57 @@ def _out_caps(compress_as_float: bool, ts_out) -> list:
     return [t.numel() if compress_as_float else _byte_length(t) for t in ts_out]
 
 
+def _decode(compress_as_float, ts_in, ts_out, checksum, prob_bits, into):
+    """The batch's decode, one launch of the decode kernel: (out, ok bool
+    (B,), sizes int32 (B,), checksum_ok bool (B,)). `out` is the decoded
+    (B, W) words (int16 or int32) or bytes; with `into`, the members are
+    written straight into ts_out instead, a failing one left as it was,
+    `out` and checksum_ok are None, and ok is int32 (1 where a member
+    succeeds), read from the kernel's status words with no other op. The
+    archives are read where they lie when ``cuda_decode.takes_members``
+    holds for them and no checksum is verified (whose stored words the
+    staged rows give), else from zero-filled rows of the decode width."""
+    B = len(ts_in)
+    if B == 0 or len(ts_out) != B:
+        raise ValueError(f"need one output per archive, got {B} archives and {len(ts_out)} outputs")
+    dev = _device([*ts_in, *ts_out])
+    caps = _out_caps(compress_as_float, ts_out)
+    L = _bucket_words(max(caps))
+    ft = float_type_of(ts_out[0].dtype) if compress_as_float else None
+    width = (codec.float_archive_buffer_bytes(ft, L) if compress_as_float
+             else ans_encode.archive_buffer_bytes(L))
+    dests = ts_out if into else None
+    word = C.float_word_size(ft) if compress_as_float else 1
+    if into or (not checksum and cuda_decode.takes_members(ts_in)):
+        if compress_as_float:
+            res = codec.float_decompress_members(ts_in, width // 4, ft, L, prob_bits, dests)
+        else:
+            res = cuda_decode.ans_decode_members(ts_in, width // 4, prob_bits, L, dests)
+        st = res["status"].T
+        if into:  # the kernel held each count to its destination's capacity
+            return None, st[0], st[1] * word, None
+        res["success"], res["size"], _ = cuda_decode.status_fields(res["status"])
+        res["checksum_ok"] = torch.ones(B, dtype=torch.bool, device=dev)
+    else:
+        arcs = _rows([layout.as_bytes(t) for t in ts_in], width)
+        if compress_as_float:
+            res = codec.float_decompress_batched(arcs.view(torch.int32), ft, L, prob_bits,
+                                                 checksum)
+        else:
+            res = cuda_decode.ans_decode_batched(arcs, prob_bits, L, None, checksum)
+    if compress_as_float:
+        out = res["out32"].view(_WORD[word])
+        sizes_bytes = layout.to_i32(res["size"] * word)
+    else:
+        out = res["out"]
+        sizes_bytes = layout.to_i32(res["size"])
+    # the capacities as a scalar, or as a device constant: a tensor made from
+    # host ints here would copy from pageable memory, which waits for the decode
+    cap = caps[0] if all(c == caps[0] for c in caps) else layout.lengths_tensor(caps, dev)
+    ok = res["success"] & (res["size"] <= cap)
+    return out, ok, sizes_bytes, res["checksum_ok"]
+
+
 @entry("front.decompress")
 def decompress_members(
     compress_as_float: bool,
@@ -382,35 +428,32 @@ def decompress_members(
     decides what to raise. With `bits`, outs[m] holds ts_out[m]'s dtype as
     :func:`as_bits` gives it (int16 for f16/bf16): the sources a caller
     that copies the outputs on passes to :func:`copy_bits_`."""
-    B = len(ts_in)
-    if B == 0 or len(ts_out) != B:
-        raise ValueError(f"need one output per archive, got {B} archives and {len(ts_out)} outputs")
-    dev = _device([*ts_in, *ts_out])
-    caps = _out_caps(compress_as_float, ts_out)
-    if compress_as_float:
-        ft = float_type_of(ts_out[0].dtype)
-        Lw = _bucket_words(max(caps))
-        arcs = _rows([_as_u8(t) for t in ts_in], codec.float_archive_buffer_bytes(ft, Lw))
-        res = codec.float_decompress_batched(arcs.view(torch.int32), ft, Lw, prob_bits, checksum)
-        out = res["out32"].view(_WORD[C.float_word_size(ft)])
-        sizes_bytes = layout.to_i32(res["size"] * C.float_word_size(ft))
-    else:
-        L = _bucket_words(max(caps))
-        arcs = _rows([_as_u8(t) for t in ts_in], ans_encode.archive_buffer_bytes(L))
-        res = cuda_decode.ans_decode_batched(arcs, prob_bits, L, None, checksum)
-        out = res["out"]
-        sizes_bytes = layout.to_i32(res["size"])
-    # the capacities as a scalar, or as a device constant: a tensor made from
-    # host ints here would copy from pageable memory, which waits for the decode
-    cap = caps[0] if all(c == caps[0] for c in caps) else layout.lengths_tensor(caps, dev)
-    ok = res["success"] & (res["size"] <= cap)
+    out, ok, sizes_bytes, checksum_ok = _decode(
+        compress_as_float, ts_in, ts_out, checksum, prob_bits, into=False)
     dtypes = [_BITS.get(t.dtype, t.dtype) if bits else t.dtype for t in ts_out]
     if len(set(dtypes)) == 1:
         views = _row_views(_view_as(out, dtypes[0]), [t.numel() for t in ts_out])
     else:
         views = [_view_as(out[m], d)[: t.numel()] for m, (t, d) in enumerate(zip(ts_out, dtypes))]
     outs = [v if v.shape == t.shape else v.view(t.shape) for v, t in zip(views, ts_out)]
-    return outs, ok, sizes_bytes, res["checksum_ok"]
+    return outs, ok, sizes_bytes, checksum_ok
+
+
+@entry("front.decompress")
+def decompress_into(compress_as_float, ts_in, ts_out, prob_bits):
+    """Decode each archive straight into ts_out[m], with no checksum and
+    nothing read back; a member that fails (status 0) leaves ts_out[m] as
+    it was. The caller has made sure that every destination is contiguous
+    and whole symbols, every archive readable in place, and that no
+    destination overlaps an archive or another destination
+    (``torch_api.decodes_in_place``). Returns (status uint8 (B,), sizes
+    int32 (B,), temp_mem_used), as :func:`decompress_data` does; counts
+    the members as ``direct_members``."""
+    _, ok, sizes_bytes, _ = _decode(compress_as_float, ts_in, ts_out, False, prob_bits,
+                                    into=True)
+    count(DIRECT_MEMBERS, len(ts_out))
+    caps = _out_caps(compress_as_float, ts_out)
+    return ok.to(torch.uint8), sizes_bytes, ans_decode.decode_scratch_bytes(max(caps), len(ts_in))
 
 
 @entry("front.decompress")
@@ -528,7 +571,7 @@ def get_compressed_info(compress_as_float: bool, ts_in: Sequence[torch.Tensor]):
     embedded ANS header sits at a header-dependent offset), as the
     reference reads its info arrays once (DietGpu.cpp:821-911).
     """
-    bufs = [_as_u8(t) for t in ts_in]
+    bufs = [layout.as_bytes(t) for t in ts_in]
     if not bufs:
         raise ValueError("need at least one archive")
     if any(b.numel() < 32 for b in bufs):

@@ -68,15 +68,41 @@
 // digest of the output is folded per warp and merged with atomicXor.
 //
 // Batched (the per_row_tables=True configurations of the TPU kernel, via
-// ans_decode_batched_pallas and float_decompress_batched_pallas): member
-// m's archive is row m of a buffer with a stride of `a32` u32, which is
-// also its read bound; its output is row m of the output, its status is
-// status[3m .. 3m + 3). A single archive is a batch of one. `static_nb`
-// >= 0 is the batched path's known block count: the block geometry comes
-// from it and success requires the header's count to equal it, as with
-// static_nb in the TPU path.
+// ans_decode_batched_pallas and float_decompress_batched_pallas): the
+// batch comes in one of two forms, chosen at run time.
+//
+// - Strided: member m's archive is row m of a buffer with a stride of
+//   `a32` u32, which is also its read bound; its output is row m of the
+//   output (nb_cap * 4096 symbols).
+// - Descriptors (the reference's BatchProviderInlinePointer,
+//   ans/BatchProvider.cuh:135-194): a table of B {archive, output, alen,
+//   cap}, passed in the launch parameters up to kInline members and read
+//   from the card above that. The archive is read where it lies, as the
+//   first `alen` u32 (alen <= a32) of a row of a32 whose words past alen
+//   read 0, which is what a zero-filled staging row of a32 holds; the
+//   output is written up to `cap` symbols (cap <= nb_cap * 4096), in
+//   div_up(cap, 4096) blocks. A member succeeds only if its header's
+//   count fits `cap` too. With `in_place`, a member that fails takes no
+//   blocks, so its output keeps every byte it had (the status contract
+//   of torch_api.decompress_data, the reference's capacity check at
+//   GpuANSDecode.cuh:326-337).
+//
+// The launch chooses the form at run time between two overloads of
+// decode_kernel<kMode>, which a trace names alike. They share one body,
+// instantiated once for each form, so that the strided form carries none
+// of the descriptor form's per-member state. On an H100, against the
+// strided kernel alone: a row, read bound and capacity held for every
+// block slowed the strided batched decode by 6-15%, and one kernel that
+// switched between the forms at run time by up to 3%; as two overloads
+// the strided form is within 1% (batched raw, 2%).
+//
+// Member m's status is status[3m .. 3m + 3). A single archive is a batch
+// of one. `static_nb` >= 0 is the batched path's known block count: the
+// block geometry comes from it and success requires the header's count to
+// equal it, as with static_nb in the TPU path.
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -97,6 +123,7 @@ constexpr int kLutWords = 2048;     // 2^11, the largest prob_bits
 constexpr uint32_t kFloatMagic = 0xF00F0001u;
 constexpr uint32_t kAnsMagic = 0xD00D0001u;
 constexpr int kBf16 = 2;
+constexpr int kInline = 128;        // descriptors a launch carries in its parameters
 // shared bytes a CTA besides the warps' slots: the LUT and the pdf's
 // prefix, seven int arrays of a round's members, the scans' scratch
 constexpr int kOverhead = 4 * (kLutWords + 256) + kRound * 7 * 4 + 32 * 8;
@@ -114,19 +141,47 @@ static_assert(kOverhead % 16 == 0 && kStreamBuf % 16 == 0 && kPlaneBuf % 16 == 0
               kLoBuf % 16 == 0, "slots must stay 16-byte aligned");
 static_assert(Cfg<kF32>::kSmem <= 232448, "more than a CTA may hold");
 
+// A member of the descriptor form, 24 bytes (ans/cuda_decode.py's DESC).
+struct Desc {
+  const uint32_t* arc;  // the archive, where it lies
+  void* out;            // the output, where it lies
+  uint32_t alen;        // u32 of the archive that are read, <= a32
+  uint32_t cap;         // symbols of the output, <= nb_cap * 4096
+};
+static_assert(sizeof(Desc) == 24, "ans/cuda_decode.py packs a descriptor in 24 bytes");
+
+// The descriptor form's batch: its n descriptors on the card (`table`), or
+// in the launch parameters (`d`, up to kInline: a __grid_constant__
+// parameter, read in place, never copied to local memory).
+struct Members {
+  const Desc* table;
+  long long n;
+  Desc d[kInline];
+};
+
 __device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Word `i` of a row whose first `alen` words lie at `arc`, the rest 0; in
+// the strided form every word of the row lies there.
+template <bool kDesc>
+__device__ __forceinline__ uint32_t at(const uint32_t* __restrict__ arc, long long alen,
+                                       long long i) {
+  return !kDesc || i < alen ? arc[i] : 0u;
+}
+
 // Word `rel` of the ANS archive at u32 `base` of a row, as the plain
 // version reads it (decode.py: decode_rows.take): clamped to [0, lim - 1],
-// lim = max(rel_len, 137), and 0 at or past the archive's rel_len words.
+// lim = max(rel_len, 137), and 0 at or past the archive's rel_len words
+// (rel_len = a32 - base) or the row's `alen` read words.
+template <bool kDesc>
 __device__ __forceinline__ uint32_t take(const uint32_t* __restrict__ arc,
                                          long long base, long long rel_len,
-                                         long long rel) {
+                                         long long alen, long long rel) {
   const long long lim = rel_len > 137 ? rel_len : 137;
   const long long r = clampll(rel, 0, lim - 1);
-  return r < rel_len ? arc[base + r] : 0u;
+  return r < rel_len ? at<kDesc>(arc, alen, base + r) : 0u;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -140,11 +195,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Copy the n row words [w0, w0 + n) to shared `dst`, word i landing at
 // dst[skew + i], skew = the source's offset in its 16-byte chunk (returned).
-// When `direct` (every word lies in the row and reads as itself) and the
-// chunks covering the range lie in the row, by 16-byte cp.async; otherwise
-// word by word through `slow(i)`. The caller waits for the copies.
+// When `direct` (every word lies in the row's alen read words and reads as
+// itself) and the chunks covering the range lie in them, by 16-byte
+// cp.async; otherwise word by word through `slow(i)`. The caller waits for
+// the copies.
 template <class Slow>
-__device__ __forceinline__ int stage(uint32_t* dst, const uint32_t* arc, long long a32,
+__device__ __forceinline__ int stage(uint32_t* dst, const uint32_t* arc, long long alen,
                                      long long w0, int n, bool direct, Slow slow,
                                      int lane) {
   const uintptr_t src = reinterpret_cast<uintptr_t>(arc) + 4 * w0;
@@ -153,7 +209,7 @@ __device__ __forceinline__ int stage(uint32_t* dst, const uint32_t* arc, long lo
     const uintptr_t c0 = src & ~uintptr_t(15);
     const uintptr_t c1 = (src + 4 * (uintptr_t)n + 15) & ~uintptr_t(15);
     const uintptr_t r0 = reinterpret_cast<uintptr_t>(arc);
-    const uintptr_t r1 = r0 + 4 * (uintptr_t)a32;
+    const uintptr_t r1 = r0 + 4 * (uintptr_t)alen;
     if (c0 >= r0 && c1 <= r1) {
       const int chunks = (int)((c1 - c0) >> 4);
       for (int i = lane; i < chunks; i += 32) {
@@ -166,20 +222,25 @@ __device__ __forceinline__ int stage(uint32_t* dst, const uint32_t* arc, long lo
   return skew;
 }
 
-// A member's headers, as the plain version parses them.
+// A member's headers, as the plain version parses them, and the blocks
+// it takes.
 struct Member {
   long long base;      // u32 of the ANS archive in the row
   long long hi_base;   // f32: u32 of the high plane
   int n_eff;           // float: the word count, clamped to [0, Lw]
   int nb_geo;          // blocks of the section geometry
   int nb_live;         // blocks that decode
+  int nb_dead;         // blocks of the output past them: zeros, or planes
   bool ok;
   uint32_t n_word;     // the header's count (words, or raw bytes)
 };
 
-template <int kMode>
-__device__ Member parse(const uint32_t* __restrict__ arc, long long a32, int nb_cap,
-                        int float_type, int prob_bits, long long static_length,
+// The member whose row of a32 u32 has its first alen words at `arc` (the
+// descriptor form; the strided form's rows lie whole at `arc`). Its dead
+// blocks are the caller's to count.
+template <int kMode, bool kDesc>
+__device__ Member parse(const uint32_t* __restrict__ arc, long long a32, long long alen,
+                        int nb_cap, int float_type, int prob_bits, long long static_length,
                         long long static_nb) {
   const long long Lw = (long long)nb_cap * kBlockBytes;
   Member M;
@@ -187,13 +248,15 @@ __device__ Member parse(const uint32_t* __restrict__ arc, long long a32, int nb_
   M.hi_base = 0;
   M.n_eff = 0;
   if constexpr (kMode == kRaw) {
-    M.n_word = take(arc, 0, a32, 2);
-    M.ok = take(arc, 0, a32, 0) == kAnsMagic &&
-           (take(arc, 0, a32, 4) & 0xfu) == (uint32_t)prob_bits && (int)M.n_word <= Lw;
+    M.n_word = take<kDesc>(arc, 0, a32, alen, 2);
+    M.ok = take<kDesc>(arc, 0, a32, alen, 0) == kAnsMagic &&
+           (take<kDesc>(arc, 0, a32, alen, 4) & 0xfu) == (uint32_t)prob_bits &&
+           (int)M.n_word <= Lw;
   } else {
-    M.n_word = arc[1];
+    M.n_word = at<kDesc>(arc, alen, 1);
     const int n = (int)M.n_word;
-    M.ok = arc[0] == kFloatMagic && (arc[2] & 0xfu) == (uint32_t)float_type && n <= Lw;
+    M.ok = at<kDesc>(arc, alen, 0) == kFloatMagic &&
+           (at<kDesc>(arc, alen, 2) & 0xfu) == (uint32_t)float_type && n <= Lw;
     if (static_length >= 0) {
       M.ok = M.ok && (long long)n == (static_length < Lw ? static_length : Lw);
     }
@@ -205,12 +268,12 @@ __device__ Member parse(const uint32_t* __restrict__ arc, long long a32, int nb_
       M.base = 4 + ((M.n_eff + 15LL) / 16) * 4;
     }
     const long long rl = a32 - M.base;
-    const int an = (int)take(arc, M.base, rl, 2);
-    M.ok = M.ok && take(arc, M.base, rl, 0) == kAnsMagic &&
-           (take(arc, M.base, rl, 4) & 0xfu) == (uint32_t)prob_bits && an <= Lw &&
-           an == M.n_eff;
+    const int an = (int)take<kDesc>(arc, M.base, rl, alen, 2);
+    M.ok = M.ok && take<kDesc>(arc, M.base, rl, alen, 0) == kAnsMagic &&
+           (take<kDesc>(arc, M.base, rl, alen, 4) & 0xfu) == (uint32_t)prob_bits &&
+           an <= Lw && an == M.n_eff;
   }
-  const int nb = (int)take(arc, M.base, a32 - M.base, 1);
+  const int nb = (int)take<kDesc>(arc, M.base, a32 - M.base, alen, 1);
   const int nb_eff = (int)clampll(nb, 0, nb_cap);
   M.nb_geo = nb_eff;
   M.nb_live = nb_eff;
@@ -246,15 +309,20 @@ __device__ __forceinline__ void flush_digest(uint32_t& digest, uint32_t* status,
   digest = 0;
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(Cfg<kMode>::kThreads, Cfg<kMode>::kMinBlocks)
-decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
-              void* __restrict__ out_all, int nb_cap, int float_type,
-              int prob_bits, long long static_length, long long static_nb,
-              int with_digest, uint32_t* __restrict__ status_all) {
+// The kernel's body for one form of the batch: strided (kDesc false:
+// member m's archive is row m of `arcs`, a32 u32 a row, its output row m of
+// `out_all`) or descriptors (`descs`), each form its own instantiation.
+template <int kMode, bool kDesc>
+__device__ __forceinline__ void decode_batch(
+    const uint32_t* __restrict__ arcs, long long batch, long long a32,
+    void* __restrict__ out_all, const Desc* __restrict__ descs, int in_place, int nb_cap,
+    int float_type, int prob_bits, long long static_length, long long static_nb,
+    int with_digest, uint32_t* __restrict__ status_all) {
   constexpr int kWarps = Cfg<kMode>::kWarps;
   constexpr int kThreads = Cfg<kMode>::kThreads;
   constexpr int kOut = kMode == kRaw ? 1 : (kMode == kF32 ? 4 : 2);  // bytes a symbol
+  using Sym = std::conditional_t<kMode == kRaw, uint8_t,
+                                 std::conditional_t<kMode == kF32, uint32_t, uint16_t>>;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
   uint32_t* incl = lut + kLutWords;
@@ -267,6 +335,7 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
   int* m_l0 = m_live + kRound;  // first live block in the prefix of all members
   int* m_d0 = m_l0 + kRound;    // first dead block in the prefix of all members
 
+  const long long Lw = (long long)nb_cap * kBlockBytes;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   uint8_t* slot = smem + kOverhead + warp * Cfg<kMode>::kSlot;
@@ -277,6 +346,25 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
   const bool bf16 = float_type == kBf16;
   const bool cta0 = blockIdx.x == 0;
 
+  // member m's header parsed and its blocks counted: its output's blocks
+  // are nb_cap in the strided form; in the descriptor form its capacity's,
+  // which the header's count must fit, and none where an in-place member
+  // fails
+  auto member = [&](long long m) {
+    const Desc d = kDesc ? descs[m] : Desc{};
+    Member M = parse<kMode, kDesc>(kDesc ? d.arc : arcs + m * a32, a32, kDesc ? d.alen : a32,
+                                   nb_cap, float_type, prob_bits, static_length, static_nb);
+    int nb_out = nb_cap;
+    if constexpr (kDesc) {
+      nb_out = (int)((d.cap + kBlockBytes - 1) / kBlockBytes);
+      M.ok = M.ok && M.n_word <= d.cap;
+      if (in_place && !M.ok) nb_out = 0;
+      M.nb_live = M.nb_live < nb_out ? M.nb_live : nb_out;
+    }
+    M.nb_dead = nb_out - M.nb_live;
+    return M;
+  };
+
   // ---- totals of live and dead blocks over the batch ----
   long long l_tot = 0;
   long long d_tot = 0;
@@ -284,10 +372,9 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
     long long l = 0;
     long long d = 0;
     for (long long m = threadIdx.x; m < batch; m += kThreads) {
-      const Member M = parse<kMode>(arcs + m * a32, a32, nb_cap, float_type, prob_bits,
-                                    static_length, static_nb);
+      const Member M = member(m);
       l += M.nb_live;
-      d += nb_cap - M.nb_live;
+      d += M.nb_dead;
       if (cta0) {
         status_all[3 * m] = M.ok ? 1u : 0u;
         status_all[3 * m + 1] = M.n_word;
@@ -316,15 +403,14 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
     long long dead = 0;
     if (threadIdx.x < kRound && r0 + threadIdx.x < batch) {
       const long long m = r0 + threadIdx.x;
-      const Member M = parse<kMode>(arcs + m * a32, a32, nb_cap, float_type, prob_bits,
-                                    static_length, static_nb);
+      const Member M = member(m);
       m_base[threadIdx.x] = (int)M.base;
       m_hib[threadIdx.x] = (int)M.hi_base;
       m_neff[threadIdx.x] = M.n_eff;
       m_geo[threadIdx.x] = M.nb_geo;
       m_live[threadIdx.x] = M.nb_live;
       live = M.nb_live;
-      dead = nb_cap - M.nb_live;
+      dead = M.nb_dead;
       if (cta0 && batch <= kRound) {
         status_all[3 * m] = M.ok ? 1u : 0u;
         status_all[3 * m + 1] = M.n_word;
@@ -369,9 +455,12 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
     const int nm = batch - r0 < kRound ? (int)(batch - r0) : kRound;
     for (int j = 0; j < nm; ++j) {
       const long long m = r0 + j;
-      const uint32_t* __restrict__ arc = arcs + m * a32;
-      uint8_t* out_m = static_cast<uint8_t*>(out_all) +
-                       m * (long long)nb_cap * kBlockBytes * kOut;
+      const Desc d = kDesc ? descs[m] : Desc{};
+      const uint32_t* __restrict__ arc = kDesc ? d.arc : arcs + m * a32;
+      const long long alen = kDesc ? d.alen : a32;  // u32 of the row that are read
+      uint8_t* out_m = kDesc ? static_cast<uint8_t*>(d.out)
+                             : static_cast<uint8_t*>(out_all) + m * Lw * kOut;
+      const long long cap = kDesc ? d.cap : Lw;  // symbols of the output
       uint32_t* status = status_all + 3 * m;
       const long long base = m_base[j];
       const long long rel_len = a32 - base;
@@ -379,10 +468,14 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
       const int n_eff = m_neff[j];
       const int nb_geo = m_geo[j];
       const int nb_live = m_live[j];
+      // the member's dead blocks: the rest of its nb_cap; in the descriptor
+      // form, up to the next member's first one
+      const long long nb_dead =
+          kDesc ? (j + 1 < nm ? m_d0[j + 1] : cd + td) - m_d0[j] : nb_cap - nb_live;
       const long long lo_l = m_l0[j] > L0 ? m_l0[j] : L0;
       const long long hi_l = m_l0[j] + nb_live < L1 ? m_l0[j] + nb_live : L1;
       const long long lo_d = m_d0[j] > D0 ? m_d0[j] : D0;
-      const long long hi_d = m_d0[j] + (nb_cap - nb_live) < D1 ? m_d0[j] + (nb_cap - nb_live) : D1;
+      const long long hi_d = m_d0[j] + nb_dead < D1 ? m_d0[j] + nb_dead : D1;
       const bool any_live = lo_l < hi_l;
       const bool any_dead = lo_d < hi_d;
       if (!any_live && !any_dead) continue;
@@ -393,7 +486,9 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
         if (warp == 0) {  // the pdf's inclusive prefix
           uint32_t pw[8];
 #pragma unroll
-          for (int c = 0; c < 8; ++c) pw[c] = take(arc, base, rel_len, 8 + 16 * c + lane / 2);
+          for (int c = 0; c < 8; ++c) {
+            pw[c] = take<kDesc>(arc, base, rel_len, alen, 8 + 16 * c + lane / 2);
+          }
           uint32_t carry = 0;
 #pragma unroll
           for (int c = 0; c < 8; ++c) {
@@ -435,20 +530,28 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
       int start = 0;
       uint32_t state = 0;
       auto head = [&](long long b) {
-        bx = take(arc, base, rel_len, bw_rel + 2 * b);
-        start = (int)take(arc, base, rel_len, bw_rel + 2 * b + 1);
-        state = take(arc, base, rel_len, 136 + 32 * b + lane);
+        bx = take<kDesc>(arc, base, rel_len, alen, bw_rel + 2 * b);
+        start = (int)take<kDesc>(arc, base, rel_len, alen, bw_rel + 2 * b + 1);
+        state = take<kDesc>(arc, base, rel_len, alen, 136 + 32 * b + lane);
       };
       if (warp < n_l) head(lb0 + warp);
       for (long long i = warp; i < n_l + n_d; i += kWarps) {
         const bool is_live = i < n_l;
         const long long b = is_live ? lb0 + i : db0 + i;
         uint8_t* outb = out_m + b * kBlockBytes * kOut;
-        // words of this block below the container's count
+        // words of this block below the container's count, and symbols of
+        // it the output holds
         const int vlim = (int)clampll((long long)n_eff - b * kBlockBytes, 0, kBlockBytes);
+        const int olim =
+            kDesc ? (int)clampll(cap - b * kBlockBytes, 0, kBlockBytes) : kBlockBytes;
         if (!is_live && (kMode == kRaw || vlim == 0)) {
-          uint4* o = reinterpret_cast<uint4*>(outb);
-          for (int q = lane; q < kBlockBytes * kOut / 16; q += 32) o[q] = make_uint4(0, 0, 0, 0);
+          if (!kDesc ||
+              (olim == kBlockBytes && (reinterpret_cast<uintptr_t>(outb) & 15u) == 0)) {
+            uint4* o = reinterpret_cast<uint4*>(outb);
+            for (int q = lane; q < kBlockBytes * kOut / 16; q += 32) o[q] = make_uint4(0, 0, 0, 0);
+          } else {
+            for (int p = lane; p < olim; p += 32) reinterpret_cast<Sym*>(outb)[p] = 0;
+          }
           continue;
         }
 
@@ -469,17 +572,19 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
           const int n16 = cw < 1 ? 1 : (cw > kMaxWords ? kMaxWords : cw);
           const int n32 = (n16 + 1) / 2;
           const long long s_rel = ds_rel + (start >> 1);
-          sskew = stage(sbuf, arc, a32, base + s_rel, n32,
-                        s_rel >= 0 && s_rel + n32 <= rel_len,
-                        [&](int w) { return take(arc, base, rel_len, s_rel + w); }, lane);
+          sskew = stage(sbuf, arc, alen, base + s_rel, n32,
+                        s_rel >= 0 && (kDesc ? base + s_rel + n32 <= alen
+                                             : s_rel + n32 <= rel_len),
+                        [&](int w) { return take<kDesc>(arc, base, rel_len, alen, s_rel + w); },
+                        lane);
         }
         int pskew = 0;
         int loskew = 0;
         if constexpr (kMode != kRaw) {
-          // plane words past the row read 0
+          // plane words past the row's read words read 0
           auto plane = [&](uint32_t* buf, long long w0, int n) {
-            return stage(buf, arc, a32, w0, n, w0 + n <= a32,
-                         [&](int w) { return w0 + w < a32 ? arc[w0 + w] : 0u; }, lane);
+            return stage(buf, arc, alen, w0, n, w0 + n <= alen,
+                         [&](int w) { return w0 + w < alen ? arc[w0 + w] : 0u; }, lane);
           };
           if constexpr (kMode == kF32) {
             loskew = plane(lobuf, 4 + b * (kBlockBytes / 2), kBlockBytes / 2);
@@ -495,23 +600,26 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
         const uint16_t* st16 = reinterpret_cast<const uint16_t*>(sbuf + sskew);
         const uint8_t* pl8 = reinterpret_cast<const uint8_t*>(pbuf + pskew);
         const uint16_t* lo16 = reinterpret_cast<const uint16_t*>(lobuf + loskew);
-        // output k * 32 + lane of the block for symbol `sym`; `masked` when
-        // the block holds the container's last word
-        auto emit = [&](int k, uint32_t sym, auto masked) {
+        // output k * 32 + lane of the block for symbol `sym`; `edge` when
+        // the block holds the container's last word or the output's last
+        // symbol: words past the count are 0, symbols past the output are
+        // not written
+        auto emit = [&](int k, uint32_t sym, auto edge) {
           const int p = k * 32 + lane;
+          if (kDesc && decltype(edge)::value && p >= olim) return;
           if constexpr (kMode == kRaw) {
             outb[p] = (uint8_t)sym;
             digest ^= sym;
           } else if constexpr (kMode == kF32) {
             uint32_t w = (sym << 24) | ((uint32_t)pl8[p] << 16) | lo16[p];
             w = (w >> 1) | (w << 31);
-            if (decltype(masked)::value && p >= vlim) w = 0;
+            if (decltype(edge)::value && p >= vlim) w = 0;
             reinterpret_cast<uint32_t*>(outb)[p] = w;
             digest ^= w;
           } else {
             uint32_t w = (sym << 8) | pl8[p];
             if (bf16) w = ((w >> 1) | (w << 15)) & 0xffffu;
-            if (decltype(masked)::value && p >= vlim) w = 0;
+            if (decltype(edge)::value && p >= vlim) w = 0;
             reinterpret_cast<uint16_t*>(outb)[p] = (uint16_t)w;
             digest ^= w;
           }
@@ -535,17 +643,17 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
           pos -= __popc(ballot);
           return sym;
         };
-        auto walk = [&](auto masked) {
-          for (int k = 127; k >= kmax; --k) emit(k, 0, masked);
+        auto walk = [&](auto edge) {
+          for (int k = 127; k >= kmax; --k) emit(k, 0, edge);
           int k = kmax - 1;
           if (rem > 0) {  // the ragged last step
-            emit(k, step(lane < rem), masked);
+            emit(k, step(lane < rem), edge);
             --k;
           }
 #pragma unroll 4
-          for (; k >= 0; --k) emit(k, step(true), masked);
+          for (; k >= 0; --k) emit(k, step(true), edge);
         };
-        if (kMode != kRaw && vlim < kBlockBytes) {
+        if ((kMode != kRaw && vlim < kBlockBytes) || (kDesc && olim < kBlockBytes)) {
           walk(std::true_type{});
         } else {
           walk(std::false_type{});
@@ -561,59 +669,119 @@ decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
   }
 }
 
-// Shared memory before L1, so that the CTAs the slots allow fit on an SM.
+// The strided form.
 template <int kMode>
-cudaError_t set_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(decode_kernel<kMode>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+__global__ void __launch_bounds__(Cfg<kMode>::kThreads, Cfg<kMode>::kMinBlocks)
+decode_kernel(const uint32_t* __restrict__ arcs, long long batch, long long a32,
+              void* __restrict__ out_all, int nb_cap, int float_type,
+              int prob_bits, long long static_length, long long static_nb,
+              int with_digest, uint32_t* __restrict__ status_all) {
+  decode_batch<kMode, false>(arcs, batch, a32, out_all, nullptr, 0, nb_cap, float_type,
+                             prob_bits, static_length, static_nb, with_digest, status_all);
+}
+
+// The descriptor form.
+template <int kMode>
+__global__ void __launch_bounds__(Cfg<kMode>::kThreads, Cfg<kMode>::kMinBlocks)
+decode_kernel(const __grid_constant__ Members mb, long long a32, int nb_cap, int float_type,
+              int prob_bits, long long static_length, long long static_nb, int with_digest,
+              int in_place, uint32_t* __restrict__ status_all) {
+  decode_batch<kMode, true>(nullptr, mb.n, a32, nullptr,
+                            mb.table != nullptr ? mb.table : mb.d, in_place, nb_cap,
+                            float_type, prob_bits, static_length, static_nb, with_digest,
+                            status_all);
+}
+
+// The two forms' kernels as function pointers, for the runtime's queries.
+template <int kMode>
+auto strided_kernel() {
+  return static_cast<void (*)(const uint32_t*, long long, long long, void*, int, int, int,
+                              long long, long long, int, uint32_t*)>(decode_kernel<kMode>);
+}
+template <int kMode>
+auto members_kernel() {
+  return static_cast<void (*)(Members, long long, int, int, int, long long, long long, int,
+                              int, uint32_t*)>(decode_kernel<kMode>);
+}
+
+// Shared memory before L1, so that the CTAs the slots allow fit on an SM.
+template <int kMode, class Kernel>
+cudaError_t set_attributes(Kernel kernel) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Cfg<kMode>::kSmem);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(decode_kernel<kMode>,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int kMode>
-int launch_decode(const void* arcs, long long batch, long long a32, void* out,
-                  int nb_cap, int float_type, int prob_bits,
-                  long long static_length, long long static_nb,
-                  int with_digest, void* status, void* stream) {
-  if (batch <= 0) return (int)cudaGetLastError();
-  constexpr int kSmem = Cfg<kMode>::kSmem;
-  cudaError_t e = set_attributes<kMode>();
-  if (e != cudaSuccess) return (int)e;
+// One wave of `kernel`'s CTAs, a block a warp at the least, for `blocks`
+// output blocks; 0 when a query fails (*e says why).
+template <int kMode, class Kernel>
+long long grid_of(Kernel kernel, long long blocks, cudaError_t* e) {
+  *e = set_attributes<kMode>(kernel);
+  if (*e != cudaSuccess) return 0;
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
-                                                    Cfg<kMode>::kThreads, kSmem);
-  if (e != cudaSuccess) return (int)e;
-  // one wave, a block a warp at the least
-  long long grid = (batch * nb_cap + Cfg<kMode>::kWarps - 1) / Cfg<kMode>::kWarps;
+  *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cfg<kMode>::kThreads,
+                                                     Cfg<kMode>::kSmem);
+  if (*e != cudaSuccess) return 0;
+  long long grid = (blocks + Cfg<kMode>::kWarps - 1) / Cfg<kMode>::kWarps;
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > cap) grid = cap;
-  if (grid < 1) grid = 1;
-  decode_kernel<kMode><<<(unsigned)grid, Cfg<kMode>::kThreads, kSmem,
-                         (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(arcs), batch, a32, out, nb_cap, float_type,
-      prob_bits, static_length, static_nb, with_digest,
+  return grid < 1 ? 1 : grid;
+}
+
+// `descs` (host, up to kInline) or `table` (on the card, beyond that)
+// holds the batch's descriptors; with neither, the batch is strided.
+template <int kMode>
+int launch_decode(const void* arcs, long long batch, long long a32, void* out,
+                  int nb_cap, int float_type, int prob_bits,
+                  long long static_length, long long static_nb,
+                  int with_digest, void* status, const void* descs,
+                  const void* table, int in_place, void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
+  constexpr int kThreads = Cfg<kMode>::kThreads;
+  constexpr int kSmem = Cfg<kMode>::kSmem;
+  cudaError_t e = cudaSuccess;
+  if (descs == nullptr && table == nullptr) {
+    const long long grid = grid_of<kMode>(strided_kernel<kMode>(), batch * nb_cap, &e);
+    if (e != cudaSuccess) return (int)e;
+    decode_kernel<kMode><<<(unsigned)grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(arcs), batch, a32, out, nb_cap, float_type, prob_bits,
+        static_length, static_nb, with_digest, static_cast<uint32_t*>(status));
+    return (int)cudaGetLastError();
+  }
+  // a table is for more than kInline members, the inline descriptors for
+  // up to kInline
+  if ((descs != nullptr) == (table != nullptr) || (descs != nullptr) != (batch <= kInline)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Members mb;
+  mb.table = static_cast<const Desc*>(table);
+  mb.n = batch;
+  if (descs != nullptr) memcpy(mb.d, descs, sizeof(Desc) * batch);
+  const long long grid = grid_of<kMode>(members_kernel<kMode>(), batch * nb_cap, &e);
+  if (e != cudaSuccess) return (int)e;
+  decode_kernel<kMode><<<(unsigned)grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      mb, a32, nb_cap, float_type, prob_bits, static_length, static_nb, with_digest, in_place,
       static_cast<uint32_t*>(status));
   return (int)cudaGetLastError();
 }
 
-template <int kMode>
-int resources(int* out) {
+template <int kMode, class Kernel>
+int resources(Kernel kernel, int* out) {
   constexpr int kSmem = Cfg<kMode>::kSmem;
-  cudaError_t e = set_attributes<kMode>();
+  cudaError_t e = set_attributes<kMode>(kernel);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, decode_kernel<kMode>);
+  e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<kMode>,
-                                                    Cfg<kMode>::kThreads, kSmem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cfg<kMode>::kThreads,
+                                                    kSmem);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = kSmem;
@@ -629,44 +797,59 @@ int resources(int* out) {
 // `batch` output rows, and 3 status words per member, zeroed by the caller:
 // success, the header's count (words of a float container, bytes of a raw
 // archive) and the folded output digest. static_length < 0 and static_nb <
-// 0 mean none.
+// 0 mean none. With `descs` (a host array of up to 128 Desc) or `table`
+// (the same on the card, for more members), the batch is in the descriptor
+// form and `arcs` and `out` are unused; `in_place` then leaves a failing
+// member's output as it was.
 
 // f16/bf16 containers -> nb_cap * 4096 words per row, as 8-byte aligned u32
-// pairs.
+// pairs (strided form; a descriptor's output is 2-byte aligned).
 extern "C" int dtt_decode(const void* arcs, long long batch, long long a32,
                           void* out, int nb_cap, int float_type, int prob_bits,
                           long long static_length, long long static_nb,
-                          int with_digest, void* status, void* stream) {
+                          int with_digest, void* status, const void* descs,
+                          const void* table, int in_place, void* stream) {
   return launch_decode<kHalf>(arcs, batch, a32, out, nb_cap, float_type,
                               prob_bits, static_length, static_nb, with_digest,
-                              status, stream);
+                              status, descs, table, in_place, stream);
 }
 
-// f32 containers -> nb_cap * 4096 u32 words per row, 16-byte aligned.
+// f32 containers -> nb_cap * 4096 u32 words per row, 16-byte aligned
+// (strided form; a descriptor's output is 4-byte aligned).
 extern "C" int dtt_decode_f32(const void* arcs, long long batch, long long a32,
                               void* out, int nb_cap, int prob_bits,
                               long long static_length, long long static_nb,
-                              int with_digest, void* status, void* stream) {
+                              int with_digest, void* status, const void* descs,
+                              const void* table, int in_place, void* stream) {
   return launch_decode<kF32>(arcs, batch, a32, out, nb_cap, 3, prob_bits,
                              static_length, static_nb, with_digest, status,
-                             stream);
+                             descs, table, in_place, stream);
 }
 
-// raw ANS archives -> nb_cap * 4096 bytes per row, 16-byte aligned, zero
-// past each block's symbols.
+// raw ANS archives -> nb_cap * 4096 bytes per row, 16-byte aligned
+// (strided form; a descriptor's output has any alignment), zero past each
+// block's symbols.
 extern "C" int dtt_decode_raw(const void* arcs, long long batch, long long a32,
                               void* out, int nb_cap, int prob_bits,
                               long long static_nb, int with_digest,
-                              void* status, void* stream) {
+                              void* status, const void* descs, const void* table,
+                              int in_place, void* stream) {
   return launch_decode<kRaw>(arcs, batch, a32, out, nb_cap, 0, prob_bits, -1,
-                             static_nb, with_digest, status, stream);
+                             static_nb, with_digest, status, descs, table,
+                             in_place, stream);
 }
 
-// The resources of configuration `config` (0 f16/bf16, 1 f32, 2 raw):
-// registers a thread, static and dynamic shared bytes a CTA, local
-// (spilled) bytes a thread, threads a CTA and CTAs per SM, into out[0..5].
+// The resources of configuration `config` (0 f16/bf16, 1 f32, 2 raw; 3-5
+// the same in the descriptor form): registers a thread, static and dynamic
+// shared bytes a CTA, local (spilled) bytes a thread, threads a CTA and
+// CTAs per SM, into out[0..5].
 extern "C" int dtt_decode_resources(int config, int* out) {
-  if (config == kF32) return resources<kF32>(out);
-  if (config == kRaw) return resources<kRaw>(out);
-  return resources<kHalf>(out);
+  switch (config) {
+    case kF32: return resources<kF32>(strided_kernel<kF32>(), out);
+    case kRaw: return resources<kRaw>(strided_kernel<kRaw>(), out);
+    case 3 + kHalf: return resources<kHalf>(members_kernel<kHalf>(), out);
+    case 3 + kF32: return resources<kF32>(members_kernel<kF32>(), out);
+    case 3 + kRaw: return resources<kRaw>(members_kernel<kRaw>(), out);
+    default: return resources<kHalf>(strided_kernel<kHalf>(), out);
+  }
 }

@@ -335,6 +335,28 @@ def float_decompress_batched(
     }
 
 
+def float_decompress_members(
+    archives,
+    a32: int,
+    float_type: int,
+    out_max_words: int,
+    prob_bits: int = C.DEFAULT_PROB_BITS,
+    outs=None,
+):
+    """:func:`float_decompress_batched` of B containers read where they lie
+    (``cuda_decode.decode_members``: each archive as the row of `a32` u32
+    a zero-filled buffer would hold), with no checksum and one launch of
+    the decode kernel. `outs` None returns the (B, ...) out32 of
+    :func:`float_decompress_batched`; B contiguous tensors are written in
+    place instead, each up to its own word count, and left as they were
+    where their member fails. Returns dict: out32 (or None) and status, the
+    (B, 3) int32 words that ``cuda_decode.status_fields`` reads."""
+    with annotate(_DECODE_STAGE[float_type == C.FLOAT_TYPE_FLOAT32], archives[0].is_cuda):
+        out32, status = cuda_decode.decode_members(
+            archives, a32, out_max_words, prob_bits, float_type, outs)
+    return {"out32": out32, "status": status}
+
+
 _TYPES = {
     torch.float16: C.FLOAT_TYPE_FLOAT16,
     torch.bfloat16: C.FLOAT_TYPE_BFLOAT16,

@@ -41,7 +41,9 @@ profilerStart/profilerStop, utils/DeviceUtils.cpp:48-54):
     ``launch.<kernel>``; :func:`host_read` is the one way the program
     reads a tensor's values to the host, and counts ``host_reads``; the
     front end's copies (``api._rows``, ``api.copy_bits_``) count the device
-    bytes they write as ``copy_bytes``.
+    bytes they write as ``copy_bytes``, and ``api.decompress_into`` the
+    members it decodes straight into their destinations as
+    ``direct_members``.
   * ``read_trace(logdir)`` and ``stage_account(events)`` read a capture
     back and attribute its host and device time to the stages.
 
@@ -78,6 +80,7 @@ SPAN_LIMIT = 65536  # the ring keeps the last this many spans
 SPANS_DIR_ENV = "DIETGPU_SPANS_DIR"
 HOST_READS = "host_reads"
 COPY_BYTES = "copy_bytes"
+DIRECT_MEMBERS = "direct_members"
 SPAN_FIELDS = ("id", "name", "parent", "call", "start_ns", "end_ns", "thread", "profiler",
                "counts")
 

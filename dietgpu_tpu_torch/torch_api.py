@@ -20,6 +20,11 @@ Contract, as in ``dietgpu_tpu.torch_api``:
   * ``max_*_compressed_output_size`` return (size, B), the reverse of
     :mod:`.api`'s (B, size).
 
+``decompress_data`` decodes each member straight into its ``ts_out``
+tensor, with no staging copy and no host read, where the call allows it
+(:func:`decodes_in_place`); otherwise it decodes into a buffer, reads the
+status back and copies each member whose status is 1 out of it.
+
 Each compress op runs inside the span ``front.compress`` and each
 decompress op inside ``front.decompress`` (``profiling``), the :mod:`.api`
 entry it calls nested in it as a child; host reads go through
@@ -32,6 +37,7 @@ import torch
 
 from . import api
 from . import constants as C
+from .ans import cuda_decode
 from .profiling import entry, host_read
 
 
@@ -113,6 +119,47 @@ def compress_data_simple(
 # ---------------------------------------------------------------------------
 
 
+def _overlap(spans) -> bool:
+    """Whether a destination's bytes meet an archive's or another
+    destination's (archives may share bytes with each other); `spans` are
+    (start, end, is_destination)."""
+    end_dest = end_arc = 0  # the furthest end of the destinations, of the archives so far
+    for start, end, is_dest in sorted(spans):
+        if start < end_dest or (is_dest and start < end_arc):
+            return True
+        if is_dest:
+            end_dest = max(end_dest, end)
+        else:
+            end_arc = max(end_arc, end)
+    return False
+
+
+def decodes_in_place(
+    compress_as_float: bool,
+    ts_in: Sequence[torch.Tensor],
+    ts_out: Sequence[torch.Tensor],
+    checksum: bool,
+) -> bool:
+    """Whether :func:`decompress_data` decodes each member straight into
+    ts_out: no checksum is verified (a mismatch must raise with ts_out as
+    it was); every destination holds float words of ts_out[0]'s size (or
+    bytes); the decode's descriptor form takes the archives and
+    destinations where they lie (``cuda_decode.takes_members``: contiguous,
+    aligned, whole u32 words and whole symbols, under 2^32 of them); and no
+    destination overlaps an archive or another destination. Anything else
+    is decoded into a buffer and copied out."""
+    if checksum or not ts_in or len(ts_in) != len(ts_out):
+        return False
+    sym = ts_out[0].element_size() if compress_as_float else 1
+    if compress_as_float and any(t.element_size() != sym for t in ts_out):
+        return False
+    if not cuda_decode.takes_members(ts_in, ts_out, sym):
+        return False
+    spans = [(t.data_ptr(), t.data_ptr() + t.nbytes, is_dest)
+             for ts, is_dest in ((ts_out, True), (ts_in, False)) for t in ts if t.nbytes]
+    return not _overlap(spans)
+
+
 def _write_ok(dsts, srcs, status) -> None:
     """Copy each decoded member (in its integer dtype) into its destination
     where status is 1, in one fused copy. The members' bit views are made
@@ -133,7 +180,12 @@ def decompress_data(
     """Decompress archives INTO ts_out (in place). Returns (status uint8
     (B,), sizes int32 (B,), temp_mem_used). status[b] = 0 with the required
     byte count in sizes[b] when ts_out[b] is too small, and ts_out[b] is
-    then left as it was; a checksum mismatch raises (DietGpu.cpp:530-677)."""
+    then left as it was; a checksum mismatch raises (DietGpu.cpp:530-677).
+    Where :func:`decodes_in_place` holds, the decode writes ts_out itself
+    and nothing is read back; else it decodes into a buffer, reads the
+    status and copies each member whose status is 1 out."""
+    if decodes_in_place(compress_as_float, ts_in, ts_out, checksum):
+        return api.decompress_into(compress_as_float, ts_in, ts_out, prob_bits)
     outs, status, sizes, tm = api._decompress_checked(
         compress_as_float, ts_in, ts_out, checksum, prob_bits, bits=True
     )

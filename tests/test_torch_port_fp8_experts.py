@@ -142,8 +142,8 @@ def test_the_byte_path_records_its_spans_and_counts_the_front_ends_copies():
     _, n, spans = _copy_bytes(
         lambda: torch_api.decompress_data(False, list(comp.unbind(0)), outs))
     arc_width = ans_encode.archive_buffer_bytes(api._bucket_words(max(lens)))
-    assert comp.shape[1] != arc_width  # the archives are copied into a zeroed buffer
-    assert n == len(lens) * arc_width + len(lens) * comp.shape[1] + sum(lens)
+    assert comp.shape[1] != arc_width  # each archive is read where it lies, not widened
+    assert n == 0  # and decoded straight into its output
     names = [s["name"] for s in spans]
     assert names.count("ans.decode") == 1 and "ans.hist" not in names
     assert all(torch.equal(_as_bytes(o), _as_bytes(x)) for o, x in zip(outs, members))

@@ -312,8 +312,13 @@ def _read_cases():
         # the _simple tier reads its sizes once, as the reference's does
         "api.compress_data_simple": (lambda: api.compress_data_simple(True, [x, y]), 1),
         "torch_api.compress_data_simple": (lambda: torch_api.compress_data_simple(True, [x]), 1),
+        # decoded straight into outs: the status stays on the device
         "torch_api.decompress_data": (
-            lambda: torch_api.decompress_data(True, [comp[0], comp[1]], outs), 1),
+            lambda: torch_api.decompress_data(True, [comp[0], comp[1]], outs), 0),
+        # a checksum call goes through a buffer: the checksum's verdict, then
+        # the status that chooses the members to copy out
+        "torch_api.decompress_data.checksum": (
+            lambda: torch_api.decompress_data(True, [comp[0], comp[1]], outs, True), 2),
     }
 
 
@@ -321,7 +326,7 @@ def _read_cases():
     "api.compress_data", "api.compress_data_split_size", "api.compress_data_stride",
     "torch_api.compress_data", "torch_api.compress_data_split_size", "float_compress_padded",
     "float_decompress_padded", "api.compress_data_simple", "torch_api.compress_data_simple",
-    "torch_api.decompress_data"])
+    "torch_api.decompress_data", "torch_api.decompress_data.checksum"])
 def test_host_reads_of_each_entry_point(case):
     """Host reads a call makes, counted on the CPU as the card's route makes
     them (the plain decode's header reads stand for the kernel's, which make

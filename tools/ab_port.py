@@ -27,6 +27,10 @@ compress with the ranges as they are and with them swapped for a no-op,
 in pairs of calls within the process, where the host's spread between
 processes does not enter.
 
+With ``--rows api`` a run times only ``api.decompress_data``, the
+functional decompress (new outputs, no checksum), at chip_smoke.py's
+paths D and H, each archive a row of ``api.compress_data``'s buffer.
+
 Prints a line per run and the medians per tree, then one JSON line.
 """
 
@@ -163,6 +167,27 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     return out
 
 
+def api_rows(timed):
+    """``api.decompress_data`` (new outputs, no checksum, prob_bits 10) at
+    paths D (128 bf16 members of 2^19 words) and H (64 of 512Ki-2Mi words),
+    each archive a row of ``api.compress_data``'s buffer, as a caller
+    passes them back."""
+    import numpy as np
+    import torch
+
+    from dietgpu_tpu_torch import api
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, lens in (("D", [1 << 19] * 128),
+                       ("H", rng.integers(1 << 19, (1 << 21) + 1, 64).tolist())):
+        ts = [torch.from_numpy(rng.standard_normal(k).astype(np.float32)).cuda()
+              .to(torch.bfloat16) for k in lens]
+        arcs = list(api.compress_data(True, ts)[0].unbind(0))
+        out[f"api decompress ({name})"] = timed(lambda: api.decompress_data(True, arcs, ts))
+    return out
+
+
 def ranges_rows(calls):
     """Each of `calls` (name -> a compress) with the codec's stage ranges
     as they are ("on") and swapped for a no-op ("off"), in RANGE_PAIRS
@@ -225,8 +250,9 @@ def ranges_rows(calls):
     return out
 
 
-def child(root):
-    """One timed run of the checkout at `root`; prints one JSON line."""
+def child(root, rows):
+    """One timed run of the checkout at `root`, of `rows` ("all" or "api");
+    prints one JSON line."""
     import numpy as np
     import torch
 
@@ -235,14 +261,6 @@ def child(root):
     from dietgpu_tpu_torch import _build
 
     _build.build_all()
-    n = 128 << 20
-    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
-    bf16 = torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16).view(np.int32)).cuda()
-    f32 = torch.from_numpy(x.view(np.int32)).cuda()
-    raw = np.minimum(np.random.default_rng(0).exponential(30, 1 << 28), 255).astype(np.uint8)
-    raw = torch.from_numpy(raw).cuda()
-    del x
-
     def timed(fn):
         for _ in range(2):
             fn()
@@ -257,6 +275,17 @@ def child(root):
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / ITERS, enqueue * 1e3 / ITERS
+
+    if rows == "api":
+        print(json.dumps({"ms": api_rows(timed), "runtime_calls": {}, "ranges": None}))
+        return
+    n = 128 << 20
+    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    bf16 = torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16).view(np.int32)).cuda()
+    f32 = torch.from_numpy(x.view(np.int32)).cuda()
+    raw = np.minimum(np.random.default_rng(0).exponential(30, 1 << 28), 255).astype(np.uint8)
+    raw = torch.from_numpy(raw).cuda()
+    del x
 
     out = {}
     for name, ft, w in (("A", 2, bf16), ("B", 3, f32)):
@@ -295,10 +324,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--rows", choices=("all", "api"), default="all")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        return child(args.other)
+        return child(args.other, args.rows)
     roots = {"other": str(Path(args.other).resolve()),
              "this": str(Path(__file__).resolve().parent.parent)}
     card = subprocess.run(
@@ -307,7 +337,8 @@ def main():
     ).stdout.strip().splitlines()[0]
     runs = []
     for tree in ("other", "this", "this", "other") * args.rounds:
-        res = subprocess.run([sys.executable, __file__, roots[tree], "--child"],
+        res = subprocess.run([sys.executable, __file__, roots[tree], "--rows", args.rows,
+                              "--child"],
                              capture_output=True, text=True, check=True)
         child_out = json.loads(res.stdout.strip().splitlines()[-1])
         times = child_out["ms"]
