@@ -7,11 +7,11 @@ it may include (``csrc/*.cuh``), then loaded with ctypes. All sources are
 compiled in parallel, one ``nvcc`` each. Nothing is built when the package
 is imported. A source may hold several kernels
 (``decode.cu`` holds the f16/bf16, f32 and raw-byte configurations of the
-decode kernel; ``join.cu`` the f16/bf16 and f32 joins; ``assembly.cu`` the
-assembly and the sections kernels), each with its own C
-entry point. Every kernel takes a
-batch of members and is launched once for the whole batch; a single
-tensor is a batch of one.
+decode kernel behind one C entry point; ``join.cu`` the two joins and
+``assembly.cu`` the assembly and sections kernels, one entry point each),
+each kernel with its own launch counter, launched through ``launch.cuh``.
+Every kernel takes a batch of members and is launched once for the whole
+batch; a single tensor is a batch of one.
 
 Every wrapper launches through :func:`launch`, which checks the returned
 ``cudaGetLastError()`` and counts the launch in ``profiling``'s registry
@@ -19,12 +19,12 @@ as ``launch.<kernel>``; :func:`kernel_launches` reads the counts.
 
 A CUDA graph capture (``torch.cuda.graph``) records the launches of a call
 on the card: the C entry points enqueue nothing but their kernel, and
-their other calls (function attributes, occupancy, the device's SM count,
-the last error) are host queries, legal while a stream captures. A kernel
-is built and loaded at its first launch, which must come before any
-capture: the warm-up call that a capture needs anyway. A launch counts
-once, when it is made, so a capture adds its launches to the counts once
-and a replay adds nothing.
+their other calls (the current device, the last error) are host queries,
+legal while a stream captures. A kernel is built and loaded, and its
+launch shape asked of the runtime, at its first launch, which must come
+before any capture: the warm-up call that a capture needs anyway. A launch
+counts once, when it is made, so a capture adds its launches to the counts
+once and a replay adds nothing.
 """
 
 import ctypes
@@ -51,6 +51,9 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+# the decode's three configurations: one entry point, a launch counter each
+_DECODE = ("decode", "dtt_decode",
+           (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP, _VP, _VP, _INT))
 # kernel (one launch counter each) -> (source, C entry point, argument types
 # before the stream, which every entry point takes last). Every entry point
 # takes a batch of members; a single tensor is a batch of one.
@@ -70,23 +73,15 @@ _ENTRY = {
         "assembly", "dtt_sections", (_VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _LL, _VP, _VP),
     ),
     "assembly": ("assembly", "dtt_assemble", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP)),
-    "decode": (
-        "decode", "dtt_decode",
-        (_VP, _LL, _LL, _VP, _INT, _INT, _INT, _LL, _LL, _INT, _VP, _VP, _VP, _INT),
-    ),
-    "decode_f32": (
-        "decode", "dtt_decode_f32",
-        (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _LL, _INT, _VP, _VP, _VP, _INT),
-    ),
-    "decode_raw": (
-        "decode", "dtt_decode_raw", (_VP, _LL, _LL, _VP, _INT, _INT, _LL, _INT, _VP, _VP, _VP, _INT),
-    ),
+    "decode": _DECODE,
+    "decode_f32": _DECODE,
+    "decode_raw": _DECODE,
     "join": ("join", "dtt_join", (_VP, _VP, _LL, _LL, _INT, _VP, _LL, _LL, _LL)),
     "join_f32": ("join", "dtt_join_f32", (_VP, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _LL, _LL)),
 }
 KERNELS = tuple(_ENTRY)
 # kernel -> (source, C entry point, configuration) of the entry that reports
-# its resources (cudaFuncGetAttributes and the occupancy at its launch shape)
+# its resources (launch.cuh: its attributes and occupancy at its launch shape)
 _RESOURCES = {
     "split": ("split", "dtt_split_resources", 0),
     "split_f32": ("split_f32", "dtt_split_f32_resources", 0),

@@ -64,3 +64,12 @@ def checksum_rows(data: torch.Tensor, lengths) -> torch.Tensor:
     keep = torch.arange(data.shape[1], device=data.device)[None, :] < n
     masked = torch.where(keep, data, torch.zeros((), dtype=torch.uint8, device=data.device))
     return _fold8(xor_reduce(masked.view(torch.int32)))
+
+
+def verified(pair: torch.Tensor, digest: torch.Tensor) -> torch.Tensor:
+    """Whether each decoded output passes its archive's stored checksum:
+    `pair` holds each archive's option word and stored checksum ((..., 2)
+    int32 u32 words), `digest` the output's folded XOR (...). An archive
+    whose options carry no checksum (bit 0x10 clear) passes."""
+    opts, stored = layout.to_u32(pair).unbind(-1)
+    return ((opts & 0x10) == 0) | (digest == stored)

@@ -48,22 +48,28 @@ FLOAT_TYPES = (*split.HALF_TYPES, C.FLOAT_TYPE_FLOAT32)
 DESC = np.dtype([("arc", "<u8"), ("out", "<u8"), ("alen", "<u4"), ("cap", "<u4")])
 INLINE = 128  # descriptors a launch carries in its parameters (csrc/decode.cu: kInline)
 U32_LIMIT = 1 << 32  # a descriptor's archive words and output symbols stay below it
+# float type (None: raw ANS archives) -> the kernel's launch counter
+_KERNEL = {None: "decode_raw", C.FLOAT_TYPE_FLOAT32: "decode_f32"}
 
 
-def _check_archive(arc32, out_max, prob_bits):
+def _check(out_max, prob_bits, float_type, a32=None, arcs=None):
+    """The one check of a decode's arguments, in every entry point and both
+    forms: prob_bits, the capacity `out_max` (symbols a member, a positive
+    multiple of 4096), the float type (None for raw ANS archives) and, for
+    float containers, rows of `a32` >= 4 words. `arcs`, where given, are
+    the strided form's rows (their width is `a32`): a (B, A/4) int32
+    tensor, B > 0."""
+    if arcs is not None:
+        if arcs.dtype != torch.int32 or arcs.dim() != 2 or arcs.shape[0] == 0:
+            raise ValueError("decode: the archives must be a (B, A/4) int32 tensor, B > 0")
+        a32 = arcs.shape[1]
     if prob_bits not in C.SUPPORTED_PROB_BITS:
         raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
     if out_max <= 0 or out_max % C.DEFAULT_BLOCK_SIZE:
         raise ValueError(f"decode: capacity {out_max} is not a positive multiple of 4096")
-    if arc32.dtype != torch.int32 or arc32.dim() != 1:
-        raise ValueError("decode: the archive must be a 1-D int32 tensor")
-
-
-def _check(arc32, float_type, out_max_words, prob_bits):
-    if float_type not in FLOAT_TYPES:
+    if float_type is not None and float_type not in FLOAT_TYPES:
         raise ValueError(f"decode: float type {float_type} is not f16/bf16/f32")
-    _check_archive(arc32, out_max_words, prob_bits)
-    if arc32.shape[0] < 4:
+    if float_type is not None and a32 < 4:
         raise ValueError("decode: a float container has at least 4 words")
 
 
@@ -94,16 +100,102 @@ def decode_float_plain(
     out32, on the archive's device. out32 is (Lw/2,) int32 word pairs for
     f16/bf16 and (Lw,) int32 words for f32, zero past the word count.
     """
-    _check(arc32, float_type, out_max_words, prob_bits)
-    out = _float_rows_plain(arc32[None], float_type, out_max_words, prob_bits,
-                            static_length, None, with_digest)
+    out = decode_float_batched_plain(arc32[None], float_type, out_max_words, prob_bits,
+                                     static_length, with_digest)
     return tuple(x[0] for x in out)
 
 
-def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
-                      with_digest):
-    """:func:`decode_float_plain` of each row of `arcs` ((B, A32) int32),
-    with the batched path's `static_nb` (None for the single path)."""
+def status_fields(status):
+    """(success bool, size int64, digest int64), each (B,), from a batch's
+    (B, 3) int32 status words as the kernel writes them."""
+    st = layout.to_u32(status.T)
+    return st[0] != 0, st[1], st[2]
+
+
+def decode_float(
+    arc32, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
+):
+    """:func:`decode_float_plain` of one container, through the kernel (a
+    batch of one) for a CUDA tensor."""
+    out = decode_float_batched(arc32[None], float_type, out_max_words, prob_bits,
+                               static_length, with_digest)
+    return tuple(x[0] for x in out)
+
+
+def decode_raw_plain(arc32, prob_bits, out_max, with_digest=False):
+    """Plain version of the decode kernel's raw-byte configuration.
+
+    Returns (out32 (out_max/4,) int32 packed bytes, zero past each block's
+    symbols, success bool (magic, prob_bits, header byte count <=
+    out_max), size int64 (the header's byte count), digest int64 (folded
+    XOR of out32, or 0)), on the archive's device.
+    """
+    _check(out_max, prob_bits, None, arcs=arc32[None])
+    res = plain_decode.ans_decode_padded(arc32, prob_bits, out_max)
+    out32 = layout.u8_to_u32le(res["out"])
+    return out32, res["success"], res["size"], _digest(out32, with_digest)
+
+
+def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
+    """Decode a raw ANS archive.
+
+    `archive` is (A/4,) int32 u32 words or (A,) uint8 bytes, A % 4 == 0;
+    bytes past the archive are ignored. `out_max` is the output capacity in
+    bytes, a positive multiple of 4096.
+
+    Returns dict, on the archive's device: out ((out_max,) uint8, a view of
+    the kernel's packed output; zero past each block's symbols), size
+    (int64, the header's byte count), success (the header's magic and
+    prob_bits match and size <= out_max), checksum_ok (False only when
+    `verify_checksum`, the archive carries a checksum, and the output's
+    digest differs from it).
+    """
+    arc32 = archive
+    if archive.dtype == torch.uint8:
+        if archive.dim() != 1 or archive.shape[0] % 4:
+            raise ValueError("ans decode: a byte archive must be 1-D with A % 4 == 0")
+        arc32 = layout.u8_to_u32le(archive.contiguous())
+    with annotate("ans.decode", arc32.is_cuda):
+        if arc32.is_cuda:
+            out32, success, size, digest = (x[0] for x in decode_raw_batched_cuda(
+                arc32[None], prob_bits, out_max, None, verify_checksum))
+        else:
+            out32, success, size, digest = decode_raw_plain(arc32, prob_bits, out_max,
+                                                            verify_checksum)
+    checksum_ok = torch.ones((), dtype=torch.bool, device=arc32.device)
+    if verify_checksum and arc32.shape[0] >= 6:
+        checksum_ok = checksum.verified(arc32[4:6], digest)
+    return {
+        "out": layout.u32_to_u8le(out32),
+        "size": size,
+        "success": success,
+        "checksum_ok": checksum_ok,
+    }
+
+
+# ---- batched: B archives, rows of one (B, stride) buffer, one launch ----
+
+
+def static_block_count(static_length, out_max_words):
+    """The block count a static length fixes (as float_decompress_batched_pallas
+    passes static_nb), or None."""
+    if static_length is None:
+        return None
+    return C.div_up(min(static_length, out_max_words), C.DEFAULT_BLOCK_SIZE)
+
+
+def decode_float_batched_plain(
+    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
+    static_nb=None,
+):
+    """Plain version of the per-member-table float decode: each row of
+    `arcs` ((B, F4) int32) decoded as :func:`decode_float_plain` decodes
+    one container, reading nothing past its row; with `static_nb` (the
+    batched path's, from :func:`static_block_count`) the block geometry comes from
+    it and each member's block count must match. Returns (out32 (B, Lw/2)
+    or (B, Lw), success (B,), size (B,), digest (B,))."""
+    _check(out_max_words, prob_bits, float_type, arcs=arcs)
+    Lw = out_max_words
     B = arcs.shape[0]
     dev = arcs.device
     u = layout.to_u32(arcs)
@@ -145,111 +237,6 @@ def _float_rows_plain(arcs, float_type, Lw, prob_bits, static_length, static_nb,
     )
 
 
-def status_fields(status):
-    """(success bool, size int64, digest int64), each (B,), from a batch's
-    (B, 3) int32 status words as the kernel writes them."""
-    st = layout.to_u32(status.T)
-    return st[0] != 0, st[1], st[2]
-
-
-def decode_float(
-    arc32, float_type, out_max_words, prob_bits, static_length=None, with_digest=False
-):
-    """:func:`decode_float_plain` of one container, through the kernel (a
-    batch of one) for a CUDA tensor."""
-    if not arc32.is_cuda:
-        return decode_float_plain(arc32, float_type, out_max_words, prob_bits,
-                                  static_length, with_digest)
-    out = decode_float_batched_cuda(arc32[None], float_type, out_max_words, prob_bits,
-                                    static_length, with_digest)
-    return tuple(x[0] for x in out)
-
-
-def decode_raw_plain(arc32, prob_bits, out_max, with_digest=False):
-    """Plain version of the decode kernel's raw-byte configuration.
-
-    Returns (out32 (out_max/4,) int32 packed bytes, zero past each block's
-    symbols, success bool (magic, prob_bits, header byte count <=
-    out_max), size int64 (the header's byte count), digest int64 (folded
-    XOR of out32, or 0)), on the archive's device.
-    """
-    _check_archive(arc32, out_max, prob_bits)
-    res = plain_decode.ans_decode_padded(arc32, prob_bits, out_max)
-    out32 = layout.u8_to_u32le(res["out"])
-    return out32, res["success"], res["size"], _digest(out32, with_digest)
-
-
-def ans_decode_padded(archive, prob_bits, out_max, verify_checksum=False):
-    """Decode a raw ANS archive.
-
-    `archive` is (A/4,) int32 u32 words or (A,) uint8 bytes, A % 4 == 0;
-    bytes past the archive are ignored. `out_max` is the output capacity in
-    bytes, a positive multiple of 4096.
-
-    Returns dict, on the archive's device: out ((out_max,) uint8, a view of
-    the kernel's packed output; zero past each block's symbols), size
-    (int64, the header's byte count), success (the header's magic and
-    prob_bits match and size <= out_max), checksum_ok (False only when
-    `verify_checksum`, the archive carries a checksum, and the output's
-    digest differs from it).
-    """
-    arc32 = archive
-    if archive.dtype == torch.uint8:
-        if archive.dim() != 1 or archive.shape[0] % 4:
-            raise ValueError("ans decode: a byte archive must be 1-D with A % 4 == 0")
-        arc32 = layout.u8_to_u32le(archive.contiguous())
-    with annotate("ans.decode", arc32.is_cuda):
-        if arc32.is_cuda:
-            out32, success, size, digest = (x[0] for x in decode_raw_batched_cuda(
-                arc32[None], prob_bits, out_max, None, verify_checksum))
-        else:
-            out32, success, size, digest = decode_raw_plain(arc32, prob_bits, out_max,
-                                                            verify_checksum)
-    checksum_ok = torch.ones((), dtype=torch.bool, device=arc32.device)
-    if verify_checksum and arc32.shape[0] >= 6:
-        opts, stored = layout.to_u32(arc32[4:6]).unbind()
-        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
-    return {
-        "out": layout.u32_to_u8le(out32),
-        "size": size,
-        "success": success,
-        "checksum_ok": checksum_ok,
-    }
-
-
-# ---- batched: B archives, rows of one (B, stride) buffer, one launch ----
-
-
-def _check_batch(arcs, out_max, prob_bits):
-    if arcs.dtype != torch.int32 or arcs.dim() != 2 or arcs.shape[0] == 0:
-        raise ValueError("batched decode: the archives must be a (B, A/4) int32 tensor")
-    _check_archive(arcs[0], out_max, prob_bits)
-
-
-def static_block_count(static_length, out_max_words):
-    """The block count a static length fixes (as float_decompress_batched_pallas
-    passes static_nb), or None."""
-    if static_length is None:
-        return None
-    return C.div_up(min(static_length, out_max_words), C.DEFAULT_BLOCK_SIZE)
-
-
-def decode_float_batched_plain(
-    arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
-    static_nb=None,
-):
-    """Plain version of the per-member-table float decode: each row of
-    `arcs` ((B, F4) int32) decoded as :func:`decode_float_plain` decodes
-    one container, reading nothing past its row; with `static_nb` (the
-    batched path's, from :func:`static_block_count`) the block geometry comes from
-    it and each member's block count must match. Returns (out32 (B, Lw/2)
-    or (B, Lw), success (B,), size (B,), digest (B,))."""
-    _check_batch(arcs, out_max_words, prob_bits)
-    _check(arcs[0], float_type, out_max_words, prob_bits)
-    return _float_rows_plain(arcs, float_type, out_max_words, prob_bits, static_length,
-                             static_nb, with_digest)
-
-
 def decode_float_batched_cuda(
     arcs, float_type, out_max_words, prob_bits, static_length=None, with_digest=False,
     static_nb=None,
@@ -257,29 +244,9 @@ def decode_float_batched_cuda(
     """Launch the f16/bf16 or f32 configuration of ``csrc/decode.cu``, one
     launch for all B rows; same contract as
     :func:`decode_float_batched_plain`."""
-    _check_batch(arcs, out_max_words, prob_bits)
-    _check(arcs[0], float_type, out_max_words, prob_bits)
-    _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
-    B, F4 = arcs.shape
-    dev = arcs.device
-    f32 = float_type == C.FLOAT_TYPE_FLOAT32
-    out32 = torch.empty(
-        (B, out_max_words if f32 else out_max_words // 2), dtype=torch.int32, device=dev
-    )
-    status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-    nb_cap = out_max_words // C.DEFAULT_BLOCK_SIZE
-    sl = -1 if static_length is None else static_length
-    snb = -1 if static_nb is None else static_nb
-    if f32:
-        _build.launch(
-            "decode_f32", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
-            prob_bits, sl, snb, int(with_digest), status.data_ptr(), None, None, 0,
-        )
-    else:
-        _build.launch(
-            "decode", arcs.data_ptr(), B, F4, out32.data_ptr(), nb_cap,
-            float_type, prob_bits, sl, snb, int(with_digest), status.data_ptr(), None, None, 0,
-        )
+    out32, status = _launch(arcs.device, out_max_words, prob_bits, float_type, arcs=arcs,
+                            static_length=static_length, static_nb=static_nb,
+                            with_digest=with_digest)
     return (out32, *status_fields(status))
 
 
@@ -297,7 +264,7 @@ def decode_raw_batched_plain(arcs, prob_bits, out_max, static_nb=None, with_dige
     `arcs` ((B, A/4) int32) decoded as :func:`decode_raw_plain` decodes one
     archive, reading nothing past its row. Returns (out32 (B, out_max/4),
     success (B,), size (B,), digest (B,))."""
-    _check_batch(arcs, out_max, prob_bits)
+    _check(out_max, prob_bits, None, arcs=arcs)
     res = plain_decode.decode_rows(layout.to_u32(arcs), prob_bits, out_max,
                                    static_nb=static_nb)
     out32 = res["out"].view(torch.int32)
@@ -307,18 +274,8 @@ def decode_raw_batched_plain(arcs, prob_bits, out_max, static_nb=None, with_dige
 def decode_raw_batched_cuda(arcs, prob_bits, out_max, static_nb=None, with_digest=False):
     """Launch the raw-byte configuration of ``csrc/decode.cu``, one launch
     for all B rows; same contract as :func:`decode_raw_batched_plain`."""
-    _check_batch(arcs, out_max, prob_bits)
-    _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
-    B, A32 = arcs.shape
-    dev = arcs.device
-    out32 = torch.empty((B, out_max // 4), dtype=torch.int32, device=dev)
-    status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-    _build.launch(
-        "decode_raw", arcs.data_ptr(), B, A32, out32.data_ptr(),
-        out_max // C.DEFAULT_BLOCK_SIZE, prob_bits,
-        -1 if static_nb is None else static_nb, int(with_digest), status.data_ptr(),
-        None, None, 0,
-    )
+    out32, status = _launch(arcs.device, out_max, prob_bits, None, arcs=arcs,
+                            static_nb=static_nb, with_digest=with_digest)
     return (out32, *status_fields(status))
 
 
@@ -350,8 +307,7 @@ def ans_decode_batched(archives, prob_bits, out_max, static_nb=None, verify_chec
         out32, success, size, digest = fn(arcs, prob_bits, out_max, static_nb, verify_checksum)
     checksum_ok = torch.ones(arcs.shape[0], dtype=torch.bool, device=arcs.device)
     if verify_checksum and arcs.shape[1] >= 6:
-        opts, stored = layout.to_u32(arcs[:, 4:6]).unbind(1)
-        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
+        checksum_ok = checksum.verified(arcs[:, 4:6], digest)
     return {
         "out": out32.view(torch.uint8),
         "size": size,
@@ -391,27 +347,22 @@ def _descriptors(archives, a32, out_max, prob_bits, float_type, outs):
     address, output address or 0 without `outs`, read words, capacity in
     symbols): the kernel's descriptors (:data:`DESC`)."""
     if not archives or (outs is not None and len(outs) != len(archives)):
-        raise ValueError("member decode: need B > 0 archives and, if given, B outputs")
-    if float_type is not None:
-        if float_type not in FLOAT_TYPES:
-            raise ValueError(f"decode: float type {float_type} is not f16/bf16/f32")
-        if a32 < 4:
-            raise ValueError("decode: a float container has at least 4 words")
-    if prob_bits not in C.SUPPORTED_PROB_BITS:
-        raise ValueError(f"prob_bits {prob_bits} not in {C.SUPPORTED_PROB_BITS}")
-    if out_max <= 0 or out_max % C.DEFAULT_BLOCK_SIZE or out_max >= U32_LIMIT:
-        raise ValueError(f"decode: capacity {out_max} is not a positive multiple of 4096")
-    if not 0 < a32 < U32_LIMIT:
-        raise ValueError(f"decode: archive row of {a32} words")
+        raise ValueError("member decode: need B > 0 archives and, if given, one output per "
+                         "archive")
+    _check(out_max, prob_bits, float_type, a32)
+    if out_max >= U32_LIMIT or not 0 < a32 < U32_LIMIT:
+        raise ValueError(f"member decode: capacity {out_max} or a row of {a32} words "
+                         "is not below 2^32")
     sym = symbol_bytes(float_type)
     if not takes_members(archives, outs, sym):
         raise ValueError("member decode: the members do not meet takes_members")
     if outs is None:
-        return [(a.data_ptr(), 0, min(a.nbytes >> 2, a32), out_max) for a in archives]
+        return np.array([(a.data_ptr(), 0, min(a.nbytes >> 2, a32), out_max)
+                         for a in archives], DESC)
     if any(o.nbytes > out_max * sym for o in outs):
         raise ValueError("member decode: an output holds more symbols than the capacity")
-    return [(a.data_ptr(), o.data_ptr(), min(a.nbytes >> 2, a32), o.nbytes // sym)
-            for a, o in zip(archives, outs)]
+    return np.array([(a.data_ptr(), o.data_ptr(), min(a.nbytes >> 2, a32), o.nbytes // sym)
+                     for a, o in zip(archives, outs)], DESC)
 
 
 def decode_members(archives, a32, out_max, prob_bits, float_type=None, outs=None):
@@ -439,33 +390,42 @@ def decode_members(archives, a32, out_max, prob_bits, float_type=None, outs=None
     version."""
     descs = _descriptors(archives, a32, out_max, prob_bits, float_type, outs)
     if archives[0].is_cuda:
-        return _members_cuda(descs, archives[0].device, a32, out_max, prob_bits, float_type,
-                             outs is not None)
+        return _launch(archives[0].device, out_max, prob_bits, float_type, a32=a32,
+                       descs=descs, in_place=outs is not None)
     return _members_plain(archives, a32, out_max, prob_bits, float_type, outs)
 
 
-def _members_cuda(descs, dev, a32, out_max, prob_bits, float_type, in_place):
-    B = len(descs)
-    descs = np.array(descs, DESC)
-    out32 = None
-    if not in_place:  # each member's row of a new buffer
-        row = out_max * symbol_bytes(float_type)
-        out32 = torch.empty((B, row // 4), dtype=torch.int32, device=dev)
-        descs["out"] = out32.data_ptr() + row * np.arange(B, dtype=np.uint64)
+def _launch(dev, out_max, prob_bits, float_type, a32=None, arcs=None, descs=None,
+            in_place=False, static_length=None, static_nb=None, with_digest=False):
+    """The one launch of ``csrc/decode.cu`` for a batch on device `dev`,
+    in either form: the strided rows `arcs` ((B, A/4) int32, checked
+    here), or B descriptors `descs` (:data:`DESC`, from
+    :func:`_descriptors`) of rows of `a32` words, whose outputs are rows of
+    a new buffer unless `in_place`. Returns (out32: (B, out_max * symbol
+    bytes / 4) int32, or None when `in_place`; status: the kernel's (B, 3)
+    int32 words)."""
+    if arcs is not None:
+        _check(out_max, prob_bits, float_type, arcs=arcs)
+        _build.check_cuda_tensor(arcs, "decode archives", torch.int32, align=4)
+        a32 = arcs.shape[1]
+    B = len(descs) if arcs is None else arcs.shape[0]
+    row = out_max * symbol_bytes(float_type)  # bytes of a member's output row
+    out32 = None if in_place else torch.empty((B, row // 4), dtype=torch.int32, device=dev)
     status = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-    table = None
-    if B > INLINE:  # one copy on the stream from pinned memory, never inside a capture
-        table = torch.from_numpy(descs.view(np.uint8)).pin_memory().to(dev, non_blocking=True)
-    host = descs.ctypes.data if table is None else None
-    nb_cap = out_max // C.DEFAULT_BLOCK_SIZE
-    tail = (0, status.data_ptr(), host, layout.data_ptr(table), int(in_place))
-    if float_type is None:
-        _build.launch("decode_raw", None, B, a32, None, nb_cap, prob_bits, -1, *tail)
-    elif float_type == C.FLOAT_TYPE_FLOAT32:
-        _build.launch("decode_f32", None, B, a32, None, nb_cap, prob_bits, -1, -1, *tail)
-    else:
-        _build.launch("decode", None, B, a32, None, nb_cap, float_type, prob_bits, -1, -1,
-                      *tail)
+    host = table = None
+    if descs is not None:
+        if out32 is not None:  # each member's row of the new buffer
+            descs["out"] = out32.data_ptr() + row * np.arange(B, dtype=np.uint64)
+        if B > INLINE:  # one copy on the stream from pinned memory, never inside a capture
+            table = torch.from_numpy(descs.view(np.uint8)).pin_memory().to(dev, non_blocking=True)
+        else:
+            host = descs.ctypes.data
+    _build.launch(
+        _KERNEL.get(float_type, "decode"), layout.data_ptr(arcs), B, a32,
+        layout.data_ptr(out32), out_max // C.DEFAULT_BLOCK_SIZE, float_type or 0, prob_bits,
+        -1 if static_length is None else static_length, -1 if static_nb is None else static_nb,
+        int(with_digest), status.data_ptr(), host, layout.data_ptr(table), int(in_place),
+    )
     return out32, status
 
 

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "byte_hist.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -255,6 +256,9 @@ sections_kernel(const uint32_t* __restrict__ counts, const uint4* __restrict__ s
   }
 }
 
+// reported only: its grid is a CTA a tile of a member's blocks on any card
+dtt::Kernel kSections(sections_kernel, kSecThreads, 0, false);
+
 }  // namespace
 
 // staged (2560 u16 per block, 16-byte aligned), counts (u32 words per
@@ -302,20 +306,8 @@ extern "C" int dtt_sections(const void* counts, const void* states, const void* 
   return (int)cudaGetLastError();
 }
 
-// The sections kernel's resources, into out[0..5] as the other sources
-// report them.
+// The sections kernel's resources, into out[0..5] (launch.cuh).
 extern "C" int dtt_sections_resources(int config, int* out) {
   (void)config;  // one configuration
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, sections_kernel);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sections_kernel, kSecThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kSecThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kSections.report(out);
 }

@@ -107,6 +107,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kHalf = 0;
@@ -692,164 +694,83 @@ decode_kernel(const __grid_constant__ Members mb, long long a32, int nb_cap, int
                             status_all);
 }
 
-// The two forms' kernels as function pointers, for the runtime's queries.
-template <int kMode>
-auto strided_kernel() {
-  return static_cast<void (*)(const uint32_t*, long long, long long, void*, int, int, int,
-                              long long, long long, int, uint32_t*)>(decode_kernel<kMode>);
-}
-template <int kMode>
-auto members_kernel() {
-  return static_cast<void (*)(Members, long long, int, int, int, long long, long long, int,
-                              int, uint32_t*)>(decode_kernel<kMode>);
-}
+// Each configuration's kernel (kMode's order) in the two forms, which the
+// types tell apart.
+using Strided = void (*)(const uint32_t*, long long, long long, void*, int, int, int, long long,
+                         long long, int, uint32_t*);
+using ByMember = void (*)(Members, long long, int, int, int, long long, long long, int, int,
+                          uint32_t*);
+const Strided kStrided[3] = {decode_kernel<kHalf>, decode_kernel<kF32>, decode_kernel<kRaw>};
+const ByMember kByMember[3] = {decode_kernel<kHalf>, decode_kernel<kF32>, decode_kernel<kRaw>};
 
-// Shared memory before L1, so that the CTAs the slots allow fit on an SM.
-template <int kMode, class Kernel>
-cudaError_t set_attributes(Kernel kernel) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Cfg<kMode>::kSmem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-// One wave of `kernel`'s CTAs, a block a warp at the least, for `blocks`
-// output blocks; 0 when a query fails (*e says why).
-template <int kMode, class Kernel>
-long long grid_of(Kernel kernel, long long blocks, cudaError_t* e) {
-  *e = set_attributes<kMode>(kernel);
-  if (*e != cudaSuccess) return 0;
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cfg<kMode>::kThreads,
-                                                     Cfg<kMode>::kSmem);
-  if (*e != cudaSuccess) return 0;
-  long long grid = (blocks + Cfg<kMode>::kWarps - 1) / Cfg<kMode>::kWarps;
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > cap) grid = cap;
-  return grid < 1 ? 1 : grid;
-}
-
-// `descs` (host, up to kInline) or `table` (on the card, beyond that)
-// holds the batch's descriptors; with neither, the batch is strided.
-template <int kMode>
-int launch_decode(const void* arcs, long long batch, long long a32, void* out,
-                  int nb_cap, int float_type, int prob_bits,
-                  long long static_length, long long static_nb,
-                  int with_digest, void* status, const void* descs,
-                  const void* table, int in_place, void* stream) {
-  if (batch <= 0) return (int)cudaGetLastError();
-  constexpr int kThreads = Cfg<kMode>::kThreads;
-  constexpr int kSmem = Cfg<kMode>::kSmem;
-  cudaError_t e = cudaSuccess;
-  if (descs == nullptr && table == nullptr) {
-    const long long grid = grid_of<kMode>(strided_kernel<kMode>(), batch * nb_cap, &e);
-    if (e != cudaSuccess) return (int)e;
-    decode_kernel<kMode><<<(unsigned)grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        static_cast<const uint32_t*>(arcs), batch, a32, out, nb_cap, float_type, prob_bits,
-        static_length, static_nb, with_digest, static_cast<uint32_t*>(status));
-    return (int)cudaGetLastError();
-  }
-  // a table is for more than kInline members, the inline descriptors for
-  // up to kInline
-  if ((descs != nullptr) == (table != nullptr) || (descs != nullptr) != (batch <= kInline)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Members mb;
-  mb.table = static_cast<const Desc*>(table);
-  mb.n = batch;
-  if (descs != nullptr) memcpy(mb.d, descs, sizeof(Desc) * batch);
-  const long long grid = grid_of<kMode>(members_kernel<kMode>(), batch * nb_cap, &e);
-  if (e != cudaSuccess) return (int)e;
-  decode_kernel<kMode><<<(unsigned)grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      mb, a32, nb_cap, float_type, prob_bits, static_length, static_nb, with_digest, in_place,
-      static_cast<uint32_t*>(status));
-  return (int)cudaGetLastError();
-}
-
-template <int kMode, class Kernel>
-int resources(Kernel kernel, int* out) {
-  constexpr int kSmem = Cfg<kMode>::kSmem;
-  cudaError_t e = set_attributes<kMode>(kernel);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Cfg<kMode>::kThreads,
-                                                    kSmem);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = kSmem;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = Cfg<kMode>::kThreads;
-  out[5] = per_sm;
-  return (int)e;
-}
+// Their shapes, the strided form's then the descriptor form's
+// (configuration 3 + kMode), with shared memory before L1, so that the
+// CTAs the slots allow fit on an SM.
+dtt::Kernel kDecode[6] = {
+    {kStrided[kHalf], Cfg<kHalf>::kThreads, Cfg<kHalf>::kSmem, true},
+    {kStrided[kF32], Cfg<kF32>::kThreads, Cfg<kF32>::kSmem, true},
+    {kStrided[kRaw], Cfg<kRaw>::kThreads, Cfg<kRaw>::kSmem, true},
+    {kByMember[kHalf], Cfg<kHalf>::kThreads, Cfg<kHalf>::kSmem, true},
+    {kByMember[kF32], Cfg<kF32>::kThreads, Cfg<kF32>::kSmem, true},
+    {kByMember[kRaw], Cfg<kRaw>::kThreads, Cfg<kRaw>::kSmem, true},
+};
 
 }  // namespace
 
-// Every entry point takes `batch` archives, rows of a32 u32 each, writes
-// `batch` output rows, and 3 status words per member, zeroed by the caller:
-// success, the header's count (words of a float container, bytes of a raw
-// archive) and the folded output digest. static_length < 0 and static_nb <
-// 0 mean none. With `descs` (a host array of up to 128 Desc) or `table`
-// (the same on the card, for more members), the batch is in the descriptor
-// form and `arcs` and `out` are unused; `in_place` then leaves a failing
-// member's output as it was.
-
-// f16/bf16 containers -> nb_cap * 4096 words per row, as 8-byte aligned u32
-// pairs (strided form; a descriptor's output is 2-byte aligned).
+// The one entry point of the three configurations, chosen by float_type:
+// 1 or 2 (f16/bf16 containers -> nb_cap * 4096 words per row, as 8-byte
+// aligned u32 pairs; a descriptor's output is 2-byte aligned), 3 (f32
+// containers -> nb_cap * 4096 u32 words per row, 16-byte aligned; a
+// descriptor's output is 4-byte aligned) or 0 (raw ANS archives -> nb_cap
+// * 4096 bytes per row, 16-byte aligned, zero past each block's symbols; a
+// descriptor's output has any alignment). It takes `batch` archives, rows
+// of a32 u32 each, writes `batch` output rows, and 3 status words per
+// member, zeroed by the caller: success, the header's count (words of a
+// float container, bytes of a raw archive) and the folded output digest.
+// static_length < 0 and static_nb < 0 mean none; a raw archive has no
+// static_length. With `descs` (a host array of up to kInline Desc) or
+// `table` (the same on the card, for more members), the batch is in the
+// descriptor form and `arcs` and `out` are unused; `in_place` then leaves
+// a failing member's output as it was.
 extern "C" int dtt_decode(const void* arcs, long long batch, long long a32,
                           void* out, int nb_cap, int float_type, int prob_bits,
                           long long static_length, long long static_nb,
                           int with_digest, void* status, const void* descs,
                           const void* table, int in_place, void* stream) {
-  return launch_decode<kHalf>(arcs, batch, a32, out, nb_cap, float_type,
-                              prob_bits, static_length, static_nb, with_digest,
-                              status, descs, table, in_place, stream);
-}
-
-// f32 containers -> nb_cap * 4096 u32 words per row, 16-byte aligned
-// (strided form; a descriptor's output is 4-byte aligned).
-extern "C" int dtt_decode_f32(const void* arcs, long long batch, long long a32,
-                              void* out, int nb_cap, int prob_bits,
-                              long long static_length, long long static_nb,
-                              int with_digest, void* status, const void* descs,
-                              const void* table, int in_place, void* stream) {
-  return launch_decode<kF32>(arcs, batch, a32, out, nb_cap, 3, prob_bits,
-                             static_length, static_nb, with_digest, status,
-                             descs, table, in_place, stream);
-}
-
-// raw ANS archives -> nb_cap * 4096 bytes per row, 16-byte aligned
-// (strided form; a descriptor's output has any alignment), zero past each
-// block's symbols.
-extern "C" int dtt_decode_raw(const void* arcs, long long batch, long long a32,
-                              void* out, int nb_cap, int prob_bits,
-                              long long static_nb, int with_digest,
-                              void* status, const void* descs, const void* table,
-                              int in_place, void* stream) {
-  return launch_decode<kRaw>(arcs, batch, a32, out, nb_cap, 0, prob_bits, -1,
-                             static_nb, with_digest, status, descs, table,
-                             in_place, stream);
+  if (float_type < 0 || float_type > 3) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return (int)cudaGetLastError();
+  const int mode = float_type == 0 ? kRaw : (float_type == 3 ? kF32 : kHalf);
+  const bool strided = descs == nullptr && table == nullptr;
+  // a table is for more than kInline members, the inline descriptors for
+  // up to kInline
+  if (!strided &&
+      ((descs != nullptr) == (table != nullptr) || (descs != nullptr) != (batch <= kInline))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dtt::Kernel& k = kDecode[(strided ? 0 : 3) + mode];
+  const int warps = k.threads / 32;
+  unsigned grid = 0;  // one wave, a block a warp at the least
+  const cudaError_t e = k.wave((batch * nb_cap + warps - 1) / warps, &grid);
+  if (e != cudaSuccess) return (int)e;
+  if (strided) {
+    kStrided[mode]<<<grid, k.threads, k.smem, (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(arcs), batch, a32, out, nb_cap, float_type, prob_bits,
+        static_length, static_nb, with_digest, static_cast<uint32_t*>(status));
+    return (int)cudaGetLastError();
+  }
+  Members mb;
+  mb.table = static_cast<const Desc*>(table);
+  mb.n = batch;
+  if (descs != nullptr) memcpy(mb.d, descs, sizeof(Desc) * batch);
+  kByMember[mode]<<<grid, k.threads, k.smem, (cudaStream_t)stream>>>(
+      mb, a32, nb_cap, float_type, prob_bits, static_length, static_nb, with_digest, in_place,
+      static_cast<uint32_t*>(status));
+  return (int)cudaGetLastError();
 }
 
 // The resources of configuration `config` (0 f16/bf16, 1 f32, 2 raw; 3-5
-// the same in the descriptor form): registers a thread, static and dynamic
-// shared bytes a CTA, local (spilled) bytes a thread, threads a CTA and
-// CTAs per SM, into out[0..5].
+// the same in the descriptor form), into out[0..5] (launch.cuh).
 extern "C" int dtt_decode_resources(int config, int* out) {
-  switch (config) {
-    case kF32: return resources<kF32>(strided_kernel<kF32>(), out);
-    case kRaw: return resources<kRaw>(strided_kernel<kRaw>(), out);
-    case 3 + kHalf: return resources<kHalf>(members_kernel<kHalf>(), out);
-    case 3 + kF32: return resources<kF32>(members_kernel<kF32>(), out);
-    case 3 + kRaw: return resources<kRaw>(members_kernel<kRaw>(), out);
-    default: return resources<kHalf>(strided_kernel<kHalf>(), out);
-  }
+  if (config < 0 || config >= 6) return (int)cudaErrorInvalidValue;
+  return kDecode[config].report(out);
 }

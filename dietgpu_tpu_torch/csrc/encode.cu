@@ -56,6 +56,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kBlockBytes = 4096;
@@ -310,13 +312,9 @@ encode_kernel(const uint8_t* __restrict__ data, long long batch, long long nbm,
   }
 }
 
-cudaError_t set_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(encode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(encode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
+// The kernel, with shared memory before L1, so that the CTAs its slots
+// allow fit on an SM.
+dtt::Kernel kEncode(encode_kernel, kThreads, kSmem, true);
 
 }  // namespace
 
@@ -333,20 +331,10 @@ extern "C" int dtt_encode(const void* data, long long batch, long long nbm,
                           int prob_bits, const void* tables, void* staged,
                           void* counts, void* states, void* stream) {
   if (batch <= 0 || nbm <= 0) return (int)cudaGetLastError();
-  cudaError_t e = set_attributes();
+  unsigned grid = 0;  // one wave, a block a warp at the least
+  const cudaError_t e = kEncode.wave((batch * nbm + kWarps - 1) / kWarps, &grid);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel, kThreads, kSmem);
-  if (e != cudaSuccess) return (int)e;
-  // one wave, a block a warp at the least
-  long long grid = (batch * nbm + kWarps - 1) / kWarps;
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > cap) grid = cap;
-  encode_kernel<<<(unsigned)grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+  encode_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(data), batch, nbm, length,
       static_cast<const long long*>(lengths), prob_bits,
       static_cast<const uint32_t*>(tables), static_cast<uint16_t*>(staged),
@@ -354,23 +342,8 @@ extern "C" int dtt_encode(const void* data, long long batch, long long nbm,
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources: registers a thread, static and dynamic shared
-// bytes a CTA, local (spilled) bytes a thread, threads a CTA and CTAs per
-// SM at its launch shape, into out[0..5].
+// The kernel's resources, into out[0..5] (launch.cuh).
 extern "C" int dtt_encode_resources(int config, int* out) {
   (void)config;  // one configuration
-  cudaError_t e = set_attributes();
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, encode_kernel);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel, kThreads, kSmem);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = kSmem;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kEncode.report(out);
 }

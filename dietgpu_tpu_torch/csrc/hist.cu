@@ -40,6 +40,7 @@
 #include <cuda_runtime.h>
 
 #include "byte_hist.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -120,31 +121,8 @@ hist_kernel(const uint32_t* __restrict__ data_all, long long batch,
       });
 }
 
-int launch_hist(const void* data, long long batch, long long row_quads,
-                long long length, const void* lengths, long long total_quads,
-                void* hist, void* cks, long long stride32, void* stream) {
-  if (batch <= 0) return (int)cudaGetLastError();
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(hist_kernel,
-                                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hist_kernel, kThreads, 0);
-  // one wave, and at least 8 quads a thread
-  long long blocks = (total_quads + kThreads * 8 - 1) / (kThreads * 8);
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  hist_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(data), batch, row_quads, length,
-      static_cast<const long long*>(lengths), total_quads,
-      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), stride32);
-  return (int)cudaGetLastError();
-}
+// The kernel, with shared memory before L1 (its 32 copies of the bins).
+dtt::Kernel kHist(hist_kernel, kThreads, 0, true);
 
 }  // namespace
 
@@ -158,29 +136,19 @@ extern "C" int dtt_hist(const void* data, long long batch, long long row_quads,
                         long long length, const void* lengths,
                         long long total_quads, void* hist, void* cks,
                         long long stride32, void* stream) {
-  return launch_hist(data, batch, row_quads, length, lengths, total_quads, hist,
-                     cks, stride32, stream);
+  if (batch <= 0) return (int)cudaGetLastError();
+  unsigned blocks = 0;  // one wave, and at least 8 quads a thread
+  const cudaError_t e = kHist.wave((total_quads + kThreads * 8 - 1) / (kThreads * 8), &blocks);
+  if (e != cudaSuccess) return (int)e;
+  hist_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(data), batch, row_quads, length,
+      static_cast<const long long*>(lengths), total_quads,
+      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), stride32);
+  return (int)cudaGetLastError();
 }
 
-// The kernel's resources: registers a thread, static and dynamic shared
-// bytes a CTA, local (spilled) bytes a thread, threads a CTA and CTAs per
-// SM at its launch shape, into out[0..5].
+// The kernel's resources, into out[0..5] (launch.cuh).
 extern "C" int dtt_hist_resources(int config, int* out) {
   (void)config;  // one configuration
-  cudaError_t e = cudaFuncSetAttribute(hist_kernel,
-                                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, hist_kernel);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hist_kernel, kThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kHist.report(out);
 }

@@ -42,6 +42,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -143,17 +145,11 @@ join_f32_kernel(const uint32_t* __restrict__ exp_all, const uint32_t* __restrict
   }
 }
 
-long long grid_x(long long units, long long batch) {
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (units + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8 / batch;  // one wave in all
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  return blocks;
-}
+// Both joins, vectorized where their rows allow; the f16/bf16 join's grid
+// is one wave of 8 CTAs an SM, the f32 join's one CTA a unit.
+dtt::Kernel kJoin[2] = {{join_kernel<false>, kThreads, 0, false},
+                        {join_kernel<true>, kThreads, 0, false}};
+dtt::Kernel kJoinF32(join_f32_kernel<true>, kThreads, 0, false);  // reported only
 
 bool aligned16(const void* p, long long stride32) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride32 * 4) % 16 == 0;
@@ -172,19 +168,20 @@ extern "C" int dtt_join(const void* exp, const void* nc, long long batch, long l
   if (batch <= 0 || n4 <= 0) return (int)cudaGetLastError();
   const bool vec = aligned16(exp, exp_stride32) && aligned16(nc, nc_stride32) &&
                    aligned16(out, out_stride32);
-  const unsigned per = (unsigned)grid_x(vec ? (n4 + 3) / 4 : n4, batch);
+  const dtt::Fit* fit = nullptr;
+  const cudaError_t e = kJoin[vec].fit(&fit);
+  if (e != cudaSuccess) return (int)e;
+  // a member's CTAs: a unit a thread, one wave of 8 CTAs an SM in all
+  long long per = ((vec ? (n4 + 3) / 4 : n4) + kThreads - 1) / kThreads;
+  const long long cap = (long long)fit->sms * 8 / batch;  // 0 past 8 members an SM
+  if (per > cap) per = cap;
+  if (per < 1) per = 1;
   const long long grid = per * batch;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const auto* e = static_cast<const uint32_t*>(exp);
-  const auto* c = static_cast<const uint32_t*>(nc);
-  auto* o = static_cast<uint32_t*>(out);
-  if (vec) {
-    join_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32, per);
-  } else {
-    join_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, c, n4, bf16, o, exp_stride32, nc_stride32, out_stride32, per);
-  }
+  auto* kernel = vec ? &join_kernel<true> : &join_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(exp), static_cast<const uint32_t*>(nc), n4, bf16,
+      static_cast<uint32_t*>(out), exp_stride32, nc_stride32, out_stride32, (unsigned)per);
   return (int)cudaGetLastError();
 }
 
@@ -206,37 +203,17 @@ extern "C" int dtt_join_f32(const void* exp, const void* lo, const void* hi,
   const unsigned per = (unsigned)(blocks < cap ? blocks : cap);
   const long long grid = per * batch;
   if (per == 0) return (int)cudaErrorInvalidConfiguration;
-  const auto* e = static_cast<const uint32_t*>(exp);
-  const auto* l = static_cast<const uint32_t*>(lo);
-  const auto* h = static_cast<const uint32_t*>(hi);
-  auto* o = static_cast<uint32_t*>(out);
-  if (lo8) {
-    join_f32_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32, per);
-  } else {
-    join_f32_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-        e, l, h, n4, o, exp_stride32, lo_stride32, hi_stride32, out_stride32, per);
-  }
+  auto* kernel = lo8 ? &join_f32_kernel<true> : &join_f32_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(exp), static_cast<const uint32_t*>(lo),
+      static_cast<const uint32_t*>(hi), n4, static_cast<uint32_t*>(out), exp_stride32,
+      lo_stride32, hi_stride32, out_stride32, per);
   return (int)cudaGetLastError();
 }
 
 // The resources of configuration `config` (0 the f16/bf16 join on 16-byte
-// aligned rows, 1 the f32 join on 8-byte aligned low-plane rows):
-// registers a thread, static and dynamic shared bytes a CTA, local
-// (spilled) bytes a thread, threads a CTA and CTAs per SM, into out[0..5].
+// aligned rows, 1 the f32 join on 8-byte aligned low-plane rows), into
+// out[0..5] (launch.cuh).
 extern "C" int dtt_join_resources(int config, int* out) {
-  const void* fn = config == 1 ? reinterpret_cast<const void*>(join_f32_kernel<true>)
-                               : reinterpret_cast<const void*>(join_kernel<true>);
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return (config == 1 ? kJoinF32 : kJoin[1]).report(out);
 }

@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "byte_hist.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -169,35 +170,10 @@ split_kernel(const uint32_t* __restrict__ pairs_all, long long batch, long long 
       });
 }
 
-template <bool kBf16>
-int launch_split(const void* pairs, long long batch, long long n_oct, long long length,
-                 const void* lengths, long long live_total, void* exp_out, void* nc_out,
-                 void* hist, void* cks, long long in_stride32, long long exp_stride32,
-                 long long nc_stride32, void* stream) {
-  auto* kernel = split_kernel<kBf16>;
-  cudaError_t e = cudaFuncSetAttribute(kernel,
-                                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  // one wave, and at least 8 octets a thread
-  const long long octets = batch * n_oct;
-  long long blocks = (octets + kThreads * 8 - 1) / (kThreads * 8);
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(pairs), batch, n_oct, length,
-      static_cast<const long long*>(lengths), live_total, static_cast<uint32_t*>(exp_out),
-      static_cast<uint32_t*>(nc_out), static_cast<unsigned*>(hist),
-      static_cast<unsigned*>(cks), in_stride32, exp_stride32, nc_stride32);
-  return (int)cudaGetLastError();
-}
+// The f16 and bf16 kernels, with shared memory before L1 (their 32 copies
+// of the bins).
+dtt::Kernel kSplit[2] = {{split_kernel<false>, kThreads, 0, true},
+                         {split_kernel<true>, kThreads, 0, true}};
 
 }  // namespace
 
@@ -215,31 +191,22 @@ extern "C" int dtt_split(const void* pairs, long long batch, long long n_oct,
                          long long in_stride32, long long exp_stride32,
                          long long nc_stride32, void* stream) {
   if (batch <= 0 || n_oct <= 0) return (int)cudaGetLastError();
-  auto* launch = bf16 ? &launch_split<true> : &launch_split<false>;
-  return launch(pairs, batch, n_oct, length, lengths, live_total, exp_out, nc_out, hist,
-                cks, in_stride32, exp_stride32, nc_stride32, stream);
+  unsigned blocks = 0;  // one wave, and at least 8 octets a thread
+  const cudaError_t e =
+      kSplit[bf16 != 0].wave((batch * n_oct + kThreads * 8 - 1) / (kThreads * 8), &blocks);
+  if (e != cudaSuccess) return (int)e;
+  auto* kernel = bf16 ? &split_kernel<true> : &split_kernel<false>;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(pairs), batch, n_oct, length,
+      static_cast<const long long*>(lengths), live_total, static_cast<uint32_t*>(exp_out),
+      static_cast<uint32_t*>(nc_out), static_cast<unsigned*>(hist),
+      static_cast<unsigned*>(cks), in_stride32, exp_stride32, nc_stride32);
+  return (int)cudaGetLastError();
 }
 
 // The kernel's resources (the bf16 configuration; the f16 one differs by
-// the rotation): registers a thread, static and dynamic shared bytes a
-// CTA, local (spilled) bytes a thread, threads a CTA and CTAs per SM at its
-// launch shape, into out[0..5].
+// the rotation), into out[0..5] (launch.cuh).
 extern "C" int dtt_split_resources(int config, int* out) {
   (void)config;  // one configuration reported
-  const void* fn = reinterpret_cast<const void*>(split_kernel<true>);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kSplit[1].report(out);
 }

@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include "byte_hist.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -308,34 +309,8 @@ split_f32_kernel(const uint32_t* __restrict__ words_all, long long batch, long l
       });
 }
 
-int launch_split_f32(const void* words, long long batch, long long n_quad, long long length,
-                     const void* lengths, long long live_total, void* exp_out, void* lo_out,
-                     void* hi_out, void* hist, void* cks, long long in_stride32,
-                     long long exp_stride32, long long plane_stride32, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(split_f32_kernel,
-                                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, split_f32_kernel, kThreads, 0);
-  // one wave, and at least 16 quads a thread
-  const long long quads = batch * n_quad;
-  long long blocks = (quads + kThreads * 16 - 1) / (kThreads * 16);
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  split_f32_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(words), batch, n_quad, length,
-      static_cast<const long long*>(lengths), live_total, static_cast<uint32_t*>(exp_out),
-      static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
-      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32, exp_stride32,
-      plane_stride32);
-  return (int)cudaGetLastError();
-}
+// The kernel, with shared memory before L1 (its 32 copies of the bins).
+dtt::Kernel kSplitF32(split_f32_kernel, kThreads, 0, true);
 
 }  // namespace
 
@@ -362,29 +337,21 @@ extern "C" int dtt_split_f32(const void* words, long long batch, long long n_qua
                              long long plane_stride32, void* stream) {
   if (batch <= 0 || n_quad <= 0) return (int)cudaGetLastError();
   if (n_quad % kTile) return (int)cudaErrorInvalidValue;
-  return launch_split_f32(words, batch, n_quad, length, lengths, live_total, exp_out, lo_out,
-                          hi_out, hist, cks, in_stride32, exp_stride32, plane_stride32, stream);
+  unsigned blocks = 0;  // one wave, and at least 16 quads a thread
+  const cudaError_t e =
+      kSplitF32.wave((batch * n_quad + kThreads * 16 - 1) / (kThreads * 16), &blocks);
+  if (e != cudaSuccess) return (int)e;
+  split_f32_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(words), batch, n_quad, length,
+      static_cast<const long long*>(lengths), live_total, static_cast<uint32_t*>(exp_out),
+      static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
+      static_cast<unsigned*>(hist), static_cast<unsigned*>(cks), in_stride32, exp_stride32,
+      plane_stride32);
+  return (int)cudaGetLastError();
 }
 
-// The kernel's resources: registers a thread, static and dynamic shared
-// bytes a CTA, local (spilled) bytes a thread, threads a CTA and CTAs per SM
-// at its launch shape, into out[0..5].
+// The kernel's resources, into out[0..5] (launch.cuh).
 extern "C" int dtt_split_f32_resources(int config, int* out) {
   (void)config;  // one configuration
-  const void* fn = reinterpret_cast<const void*>(split_f32_kernel);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kSplitF32.report(out);
 }

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "byte_hist.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -142,6 +143,9 @@ tables_kernel(const uint32_t* __restrict__ hist, const uint32_t* __restrict__ pd
   table[m * 2 * kSyms + kSyms + t] = magic;
 }
 
+// reported only: its grid is a CTA a member on any card
+dtt::Kernel kTables(tables_kernel, kThreads, 0, false);
+
 }  // namespace
 
 // Quantize and tabulate `batch` members: hist holds `batch` rows of 256
@@ -161,19 +165,8 @@ extern "C" int dtt_tables(const void* hist, const void* pdf_in, long long batch,
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources, into out[0..5] as the other sources report them.
+// The kernel's resources, into out[0..5] (launch.cuh).
 extern "C" int dtt_tables_resources(int config, int* out) {
   (void)config;  // one configuration
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, tables_kernel);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tables_kernel, kThreads, 0);
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = 0;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = kThreads;
-  out[5] = per_sm;
-  return (int)e;
+  return kTables.report(out);
 }

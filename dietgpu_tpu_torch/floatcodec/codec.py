@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ans import cuda_decode, cuda_encode, layout
+from ..ans import checksum, cuda_decode, cuda_encode, layout
 from ..ans import encode as ans_encode
 from ..profiling import annotate, host_read
 from . import cuda_float
@@ -140,8 +140,7 @@ def float_decompress_padded(
         )
     checksum_ok = torch.ones((), dtype=torch.bool, device=archive.device)
     if verify_checksum:
-        opts, stored = layout.to_u32(archive[2:4]).unbind()
-        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
+        checksum_ok = checksum.verified(archive[2:4], digest)
     return {
         "out32": out32,
         "size": size,
@@ -325,8 +324,7 @@ def float_decompress_batched(
         )
     checksum_ok = torch.ones(archives.shape[0], dtype=torch.bool, device=archives.device)
     if verify_checksum:
-        opts, stored = layout.to_u32(archives[:, 2:4]).unbind(1)
-        checksum_ok = ((opts & 0x10) == 0) | (digest == stored)
+        checksum_ok = checksum.verified(archives[:, 2:4], digest)
     return {
         "out32": out32,
         "size": size,

@@ -402,21 +402,31 @@ def test_entry_argument_types_match_the_c_signatures():
     # every source is built, and the new and changed entry points are bound
     assert {source for source, _, _ in _build._ENTRY.values()} == set(_build.SOURCES)
     assert {"join", "join_f32", "split", "split_f32"} <= set(_build._ENTRY)
+    # the decode's three configurations bind one symbol with one tuple, and
+    # decode.cu exports no other launch entry point
+    decode = {_build._ENTRY[k] for k in ("decode", "decode_f32", "decode_raw")}
+    assert len(decode) == 1 and next(iter(decode))[:2] == ("decode", "dtt_decode")
+    text = (_build.CSRC / "decode.cu").read_text()
+    assert re.findall(r'extern "C" int (\w+)\(', text) == ["dtt_decode", "dtt_decode_resources"]
 
 
 def test_resource_entries_match_the_c_signatures():
     """Each kernel whose resources are reported has a C entry `(int config,
-    int* out)` in its source, and the report names as many fields as the
-    entry writes."""
+    int* out)` in its source that returns the report of launch.cuh, and the
+    report names as many fields as the header writes."""
     import re
 
     assert set(_build._RESOURCES) == {"split", "split_f32", "hist", "tables", "encode",
                                       "sections", "decode", "decode_f32", "decode_raw",
                                       "join", "join_f32"}
+    header = (_build.CSRC / "launch.cuh").read_text()
+    assert sorted(int(i) for i in re.findall(r"out\[(\d)\] =", header)) == list(
+        range(len(_build.RESOURCE_FIELDS)))
     for name, (source, sym, config) in _build._RESOURCES.items():
         text = (_build.CSRC / f"{source}.cu").read_text()
         params = re.search(rf'extern "C" int {sym}\(([^)]*)\)', text).group(1)
         assert [p.strip().rsplit(" ", 1)[0] for p in params.split(",")] == ["int", "int*"], name
-        assert max(int(i) for i in re.findall(r"out\[(\d)\]", text)) + 1 == len(
-            _build.RESOURCE_FIELDS), name
+        body = text[text.index(f'extern "C" int {sym}('):]
+        assert re.search(r"return .*\.report\(out\);", body.split("\n}")[0]), name
+        assert not re.findall(r"out\[(\d)\]", text), name
         assert 0 <= config <= 2

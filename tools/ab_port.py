@@ -16,7 +16,9 @@ chip_smoke.py's rows of paths A-F, split_f32 at path B's (also on
 uniformly random words) and in container mode at path Hf's ragged
 lengths, the ragged split at path H's (on normal and on
 uniformly random words) and the f32 join at path J's, called as the main
-paths call them. Two versions are
+paths call them; the join, tables, sections and assembly kernels at
+path A's shape, and the decode's descriptor form at path M's rows. Two
+versions are
 compared only within one such run. Each child also counts, with
 torch.profiler over 10 compress calls, the CUDA
 runtime calls a compress makes (kernel launches, copies, stream
@@ -80,10 +82,9 @@ def split_f32_ragged_row(timed):
 
 
 def kernel_rows(port, timed, bf16, f32, raw, arc_c):
-    """The split, hist, encode, decode, split_f32, ragged split and f32 join
-    kernels alone at chip_smoke.py's rows: A, B, C, J (the inputs above),
-    the batches D, E, F made as chip_smoke.py makes them and H's lengths,
-    called as the main paths call them."""
+    """Every kernel alone at chip_smoke.py's rows: A, B, C, J (the inputs
+    above), the batches D, E, F made as chip_smoke.py makes them, H's
+    lengths and M's members, called as the main paths call them."""
     import numpy as np
     import torch
 
@@ -93,8 +94,11 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     n, L = 128 << 20, 1 << 28
     out = {}
     out["kernel split (A)"] = timed(lambda: cuda_float.split_words_batched_cuda(bf16[None], n, 2))
-    exp32, _, hist, _ = cuda_float.split_words_batched_cuda(bf16[None], n, 2)
+    exp32, nc32, hist, _ = cuda_float.split_words_batched_cuda(bf16[None], n, 2)
     out["kernel encode (A)"] = encode_row(timed, exp32, n, 10, hist, n)
+    out["kernel join (J)"] = timed(lambda: cuda_float.join_words_cuda(exp32, nc32, 2))
+    out.update(glue_rows(port, timed, bf16, exp32, hist))
+    del nc32
     out["kernel split_f32 (B)"] = timed(
         lambda: cuda_float.split_words_f32_batched_cuda(f32[None], n))
     uniform = torch.randint(-(1 << 31), 1 << 31, (1, n), dtype=torch.int32, device="cuda")
@@ -164,6 +168,74 @@ def kernel_rows(port, timed, bf16, f32, raw, arc_c):
     arcs, _ = port.ans_encode_batched(data, lengths, None, 10, False)
     out["kernel decode_raw_batched (F)"] = timed(
         lambda: cuda_decode.decode_raw_batched_cuda(arcs, 10, cap))
+    del data, d32, arcs
+    out.update(member_rows(port, timed, bf16))
+    return out
+
+
+def glue_rows(port, timed, bf16, exp32, hist):
+    """The tables, sections and assembly kernels alone at path A's shape,
+    on the split and encode kernels' outputs, as the compress paths call
+    them."""
+    import torch
+
+    from dietgpu_tpu_torch import constants as C
+    from dietgpu_tpu_torch.ans import cuda_encode
+
+    n = bf16.numel() * 2
+    arc, _ = port.float_compress_padded(bf16, n, 2, 10, False)
+    arcs = torch.zeros_like(arc)[None]
+    del arc
+    pdfs, tables = cuda_encode.quantize_cuda(hist, n, 10)
+    staged, counts, states = cuda_encode.encode_blocks_batched_cuda(exp32, n, 10, tables)
+    base32 = 4 + C.round_up(n, 16) // 4
+
+    def sections():
+        return cuda_encode.write_sections_batched_cuda(arcs, base32, pdfs, states, counts, [n],
+                                                       10)
+
+    prefix, ds32 = sections()[:2]
+    return {
+        "kernel tables (A)": timed(lambda: cuda_encode.quantize_cuda(hist, n, 10)),
+        "kernel sections (A)": timed(sections),
+        "kernel assembly (A)": timed(lambda: cuda_encode.assemble_payload_batched_cuda(
+            arcs, ds32[0], staged, counts, prefix)),
+    }
+
+
+def member_rows(port, timed, bf16):
+    """The decode kernel's descriptor form alone at chip_smoke.py's path M:
+    path A's archive into one bf16 tensor, and 24 raw members of
+    14,680,064 e4m3 bytes (one expert layer) into their own tensors,
+    beside the strided form at the same width."""
+    import torch
+
+    from dietgpu_tpu_torch import api
+    from dietgpu_tpu_torch.ans import cuda_decode
+    from dietgpu_tpu_torch.ans import encode as ans_encode
+
+    n = bf16.numel() * 2
+    arc, size = port.float_compress_padded(bf16, n, 2, 10, False)
+    arc_a = arc[: int(size) // 4]
+    dest = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    out = {"kernel decode_members (M, A)": timed(
+        lambda: cuda_decode.decode_members([arc_a], arc.numel(), n, 10, 2, [dest]))}
+    del arc, arc_a, dest
+    XM, XB = 24, 14_680_064
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    data = (torch.randn((XM, XB), generator=gen, device="cuda") * 100).clamp(-448, 448)
+    data = data.to(torch.float8_e4m3fn).view(torch.uint8)
+    arcs, _ = port.ans_encode_batched(data, [XB] * XM, None, 10, False)
+    Lx = api._bucket_words(XB)
+    a32 = ans_encode.archive_buffer_bytes(Lx) // 4
+    staged = torch.zeros((XM, a32), dtype=torch.int32, device="cuda")
+    staged[:, : arcs.shape[1]] = arcs
+    archives = list(arcs.unbind(0))
+    dests = list(torch.empty_like(data).unbind(0))
+    out["kernel decode_raw (M, experts, strided)"] = timed(
+        lambda: cuda_decode.decode_raw_batched_cuda(staged, 10, Lx))
+    out["kernel decode_raw_members (M, experts)"] = timed(
+        lambda: cuda_decode.decode_members(archives, a32, Lx, 10, None, dests))
     return out
 
 
